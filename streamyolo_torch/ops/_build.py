@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels (``streamyolo_torch/csrc/*.cu``).
+
+Each source compiles once, with ``nvcc`` for ``sm_90a``, into its own shared
+library with a plain C interface under ``build/kernels/`` of the checkout,
+named by a hash of the source and the flags, and is loaded with ``ctypes``.
+All sources build in parallel (one ``nvcc`` each). There is no fallback: a
+missing ``nvcc`` or a failed build raises.
+
+Flags: no ``--use_fast_math``; ``-fmad=false`` and IEEE division / square
+root, so that float arithmetic rounds step by step as the plain PyTorch
+versions do (the NMS keep mask must be bit-identical to them).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("nms", "preproc")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-prec-div=true",
+    "-prec-sqrt=true", "-ftz=false", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
+        "streamyolo_torch cannot be built on this host")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every source not built yet, all ``nvcc`` processes at once.
+    Returns ``{name: {"path", "seconds", "log"}}``; ``log`` holds ptxas's
+    register / shared-memory report. Raises on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    report: Dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        out = _target(name)
+        if out.exists():
+            report[name] = {"path": str(out), "seconds": 0.0, "log": "cached"}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
+                        "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _target(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib

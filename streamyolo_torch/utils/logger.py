@@ -1,0 +1,22 @@
+"""Logging setup (stdlib logging), the port's own copy of
+``streamyolo_tpu/utils/logger.py::get_logger``."""
+
+from __future__ import annotations
+
+import logging
+import sys
+from typing import Optional
+
+_LOGGER_NAME = "streamyolo_torch"
+_FORMAT = "%(asctime)s | %(levelname)s | %(name)s:%(lineno)d - %(message)s"
+
+
+def get_logger(name: Optional[str] = None) -> logging.Logger:
+    logger = logging.getLogger(_LOGGER_NAME if name is None else f"{_LOGGER_NAME}.{name}")
+    root = logging.getLogger(_LOGGER_NAME)
+    if not root.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter(_FORMAT))
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+    return logger

@@ -1,0 +1,107 @@
+"""Weights carried across from the JAX package and from released files.
+
+The port's modules use the yolox ``state_dict`` names
+(``backbone.backbone.dark2.0.conv.weight``, ``head.cls_convs.0.0.conv.weight``,
+``head.stems.0...``), so a released ``.pth`` loads ``strict=True``.
+
+``flax_path_to_torch`` is the port's own copy of the naming rules of
+``streamyolo_tpu/utils/torch_import.py:90-123``:
+
+  * a flax segment ending in ``_<digits>`` is a torch list index
+    (``dark2_0`` -> ``dark2.0``, ``m_0_1`` -> ``m.0.1``);
+  * a 4-D ``kernel`` transposes HWIO -> OIHW, a 2-D one [in, out] -> [out, in];
+  * BatchNorm ``scale`` -> ``weight``; ``batch_stats`` ``mean``/``var`` ->
+    ``running_mean``/``running_var``.
+
+JAX exports no ``num_batches_tracked``; the loaders here fill it (0) for
+every BatchNorm so strict loading works.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def flax_path_to_torch(
+    collection: str, path: Tuple[str, ...], ndim: int
+) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """One flax variables leaf -> (torch state_dict key, transpose to apply)."""
+    segments = []
+    for seg in path[:-1]:
+        parts = seg.split("_")
+        i = len(parts)
+        while i > 1 and parts[i - 1].isdigit():
+            i -= 1
+        segments.append("_".join(parts[:i]))
+        segments.extend(parts[i:])
+    leaf = path[-1]
+    prefix = ".".join(segments)
+    if collection == "batch_stats":
+        if leaf not in ("mean", "var"):
+            raise KeyError(f"Unrecognized batch_stats leaf: {'/'.join(path)}")
+        return f"{prefix}.running_{leaf}", None
+    if leaf == "kernel":
+        if ndim == 4:  # HWIO -> OIHW
+            return f"{prefix}.weight", (3, 2, 0, 1)
+        if ndim == 2:  # flax Dense [in, out] -> torch Linear [out, in]
+            return f"{prefix}.weight", (1, 0)
+        return f"{prefix}.weight", None
+    if leaf == "scale":
+        return f"{prefix}.weight", None
+    if leaf == "bias":
+        return f"{prefix}.bias", None
+    raise KeyError(f"Unrecognized flax parameter leaf: {collection}/{'/'.join(path)}")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def with_num_batches_tracked(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Add a zero ``num_batches_tracked`` beside every ``running_mean`` that
+    lacks one (JAX and some exporters do not write it)."""
+    out = dict(state_dict)
+    for key in state_dict:
+        if key.endswith(".running_mean"):
+            nbt = key[: -len("running_mean")] + "num_batches_tracked"
+            out.setdefault(nbt, torch.zeros((), dtype=torch.long))
+    return out
+
+
+def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Nested ``{'params', 'batch_stats'}`` dict of arrays -> the port's
+    state dict (torch names, OIHW convs, ``num_batches_tracked`` filled)."""
+    out: Dict[str, torch.Tensor] = {}
+    for full_path, value in _flatten(variables):
+        collection, path = full_path[0], full_path[1:]
+        arr = np.asarray(value)
+        key, transpose = flax_path_to_torch(collection, path, arr.ndim)
+        if transpose is not None:
+            arr = arr.transpose(transpose)
+        out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    return with_num_batches_tracked(out)
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """Read a released-format ``.pth`` (a raw state dict, or a trainer
+    checkpoint holding it under ``model``) or a ``.safetensors`` file with
+    torch names (needs the ``safetensors`` package)."""
+    if str(path).endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise ImportError(
+                "reading .safetensors needs the safetensors package") from e
+        state_dict = load_file(path)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        state_dict = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    return with_num_batches_tracked(
+        {k: torch.as_tensor(v) for k, v in state_dict.items()})
