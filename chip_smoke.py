@@ -5,11 +5,12 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``streamyolo_torch/csrc``, holds each against
-its plain PyTorch version on the card, serves StreamYOLO-l at 600x960
+its plain PyTorch version on the card (edge cases included), holds the bf16
+decode of the card against the CPU's, serves StreamYOLO-l at 600x960
 through ``CUDAStreamDetector`` (host path and ``device_preproc``) with
 random weights from a seed, checks the outputs (the card's fp32 step against
 the CPU, bf16 against fp32), and times the step and each kernel with CUDA
-events. Each phase prints one JSON line; the line before the last lists the
+events, one call at a time and back to back. Each phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result. Imports
 nothing of JAX.
@@ -54,7 +55,8 @@ def time_cuda(fn, iters: int, warmup: int = 3, device_only: bool = False) -> flo
     ``device_only``: the card first sleeps ~0.5 ms, so the host has queued
     the call before the start event fires and the span holds the kernel's
     device time alone, not the wrapper's submit time (use for calls that
-    do not synchronise)."""
+    do not synchronise). The span still holds the card's own cost of one
+    launch between two events (``floor_ms``)."""
     import torch
 
     for _ in range(warmup):
@@ -74,6 +76,30 @@ def time_cuda(fn, iters: int, warmup: int = 3, device_only: bool = False) -> flo
     return statistics.median(times)
 
 
+def time_back_to_back(fn, calls: int = 100, reps: int = 10) -> float:
+    """CUDA events around ``calls`` launches of ``fn`` in a row, divided by
+    ``calls``; median of ``reps`` (ms). The card sleeps while the host
+    queues the calls, so they run back to back and the span is device time
+    with the launches pipelined. ``fn`` must not synchronise."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000 * calls)  # ~50 us of host time per queued call
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def nms_case(k: int, seed: int, ties: bool = False):
     """The cases of ``run_pallas_nms_selftest``: score-sorted boxes with 3
     class offsets, 80 % valid; ``ties`` sorts groups of 4 equal scores."""
@@ -86,6 +112,27 @@ def nms_case(k: int, seed: int, ties: bool = False):
         boxes = boxes[np.argsort(-scores, kind="stable")]
     boxes += rng.randint(0, 3, (k, 1)) * 8192.0
     return boxes.astype(np.float32), rng.uniform(size=k) < 0.8
+
+
+def nms_cases():
+    """(label, boxes [B, K, 4], valid [B, K], thr) for the B1 checks: the
+    self-test cases at every K the kernel's chunking distinguishes (1, one
+    word short and over, the serving 200, the 1024 maximum), both
+    thresholds, score ties, all boxes invalid, all boxes identical (one
+    keeper and the longest suppression), and the multi-stream batch of 56."""
+    def stack(k, seeds, ties=False):
+        data = [nms_case(k, seed=1000 * k + s, ties=ties) for s in seeds]
+        return np.stack([d[0] for d in data]), np.stack([d[1] for d in data])
+
+    cases = [(f"K={k} thr={thr}", *stack(k, range(8)), thr)
+             for k in (1, 31, 33, 64, 200, 1024) for thr in (0.45, 0.65)]
+    cases.append(("K=200 ties", *stack(200, range(8), ties=True), 0.65))
+    boxes, valid = stack(200, range(8))
+    cases.append(("K=200 all invalid", boxes, np.zeros_like(valid), 0.65))
+    same = np.broadcast_to(boxes[:, :1], boxes.shape).copy()
+    cases.append(("K=200 all identical", same, np.ones_like(valid), 0.65))
+    cases.append(("K=200 multi-stream", *stack(200, range(56)), 0.65))
+    return cases
 
 
 def iou_evaluations(boxes, valid, thr) -> int:
@@ -157,6 +204,7 @@ def main() -> int:
         return 1
 
     from streamyolo_torch.models import build_streamyolo
+    from streamyolo_torch.models.heads import eval_outputs
     from streamyolo_torch.ops import _build
     from streamyolo_torch.ops.nms import candidate_counts, postprocess_fixed, select_candidates
     from streamyolo_torch.ops.nms_cuda import nms_keep, nms_padded, nms_padded_sequential
@@ -177,37 +225,46 @@ def main() -> int:
     report = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
-                    if "registers" in ln or "bytes smem" in ln]
+                    if "registers" in ln or "bytes smem" in ln or "spill" in ln]
              for name, r in report.items()}
     emit("build", seconds=build_s, per_source={n: r["seconds"] for n, r in report.items()},
          ptxas=ptxas)
 
     # 3. B1 against its plain versions (fixed point on the card, sweep on the CPU)
     nms_checked, nms_mismatch, nms_err = 0, 0, 0.0
-    cases = [(k, thr, False) for k in (64, 200, 1024) for thr in (0.45, 0.65)]
-    cases.append((200, 0.65, True))
-    for k, thr, ties in cases:
-        data = [nms_case(k, seed=1000 * k + s, ties=ties) for s in range(8)]
-        boxes = torch.from_numpy(np.stack([d[0] for d in data])).to(dev)
-        valid = torch.from_numpy(np.stack([d[1] for d in data])).to(dev)
+    labels = []
+    for label, boxes, valid, thr in nms_cases():
+        boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
         got = nms_keep(boxes, valid, thr)
         torch.cuda.synchronize()
         want_fp = nms_padded(boxes, valid, thr)
         want_seq = nms_padded_sequential(boxes.cpu(), valid.cpu(), thr)
         bad = int((got != want_fp).sum()) + int((got.cpu() != want_seq).sum())
         nms_err = max(nms_err, float((got.cpu().float() - want_seq.float()).abs().max()))
-        check(bad == 0, f"B1 keep mask differs from the plain versions at K={k} thr={thr}"
-              f" ties={ties}: {bad} entries")
+        check(bad == 0, f"B1 keep mask differs from the plain versions at {label}: {bad} entries")
+        if label.endswith("all identical"):
+            check(bool(got[:, 0].all()) and not bool(got[:, 1:].any()),
+                  "B1 kept more than the first of identical boxes")
+        if label.endswith("all invalid"):
+            check(not bool(got.any()), "B1 kept an invalid box")
         nms_mismatch += bad
         nms_checked += got.numel()
-    emit("b1_vs_plain", cases=len(cases), batch=8, entries_checked=nms_checked,
+        labels.append(f"{label} B={boxes.shape[0]}")
+    emit("b1_vs_plain", cases=labels, entries_checked=nms_checked,
          mismatches=nms_mismatch, max_abs_err=nms_err, exact=True)
 
-    # 4. B2 against its plain version, raw and fused, float32 and bf16
-    pre_err = 0.0
-    for h, w in ((64, 96), (60, 32), (1200, 1920)):
+    # 4. B2 against its plain version, raw and fused, float32 and bf16, at
+    # the serving frame, small and ragged widths, and frames whose data_ptr
+    # is off the 16-byte grid (the kernel's per-pixel path)
+    pre_err, shapes = 0.0, []
+    for h, w, offset in ((64, 96, 0), (60, 32, 0), (2, 2, 0), (2, 34, 0), (1200, 1920, 0),
+                         (1200, 1922, 0), (64, 96, 1), (1200, 1920, 1)):
         frame = torch.from_numpy(
-            np.random.RandomState(h).randint(0, 256, (h, w, 3), np.uint8)).to(dev)
+            np.random.RandomState(h + w).randint(0, 256, (h, w, 3), np.uint8)).to(dev)
+        if offset:
+            store = torch.empty(frame.numel() + 16, dtype=torch.uint8, device=dev)
+            frame = store[offset:offset + frame.numel()].view(h, w, 3).copy_(frame)
+            check(frame.data_ptr() % 16 != 0, "the offset frame is 16-byte aligned")
         for dtype in (torch.float32, torch.bfloat16):
             for fused in (False, True):
                 got = downsample2x(frame, out_dtype=dtype, fused=fused)
@@ -215,10 +272,29 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = float((got.float() - want.float()).abs().max())
                 check(torch.equal(got, want) and got.dtype == dtype,
-                      f"B2 differs from its plain version at {h}x{w} {dtype} fused={fused}")
+                      f"B2 differs from its plain version at {h}x{w}+{offset} {dtype} "
+                      f"fused={fused}")
                 pre_err = max(pre_err, err)
-    emit("b2_vs_plain", shapes=["64x96", "60x32", "1200x1920"], modes=["raw", "fused"],
+        shapes.append(f"{h}x{w}" + (f" data_ptr+{offset}" if offset else ""))
+    emit("b2_vs_plain", shapes=shapes, modes=["raw", "fused"],
          dtypes=["float32", "bfloat16"], max_abs_err=pre_err, exact=True)
+
+    # 4b. the head's decode on the card against the CPU on the same bf16 maps
+    # (serving level shapes). Both round the sigmoid and exp to bf16 as the
+    # JAX package does; the card's exp may round differently from the CPU's
+    # in rare cases, so the bound is one bf16 ulp of the larger value.
+    rng = np.random.RandomState(SEED)
+    maps = [torch.from_numpy(rng.normal(0, 2, (1, 5 + NCLS, h, w)).astype(np.float32))
+            .to(torch.bfloat16) for h, w in ((75, 120), (38, 60), (19, 30))]
+    dec_gpu = eval_outputs([m.to(dev) for m in maps], (8, 16, 32)).cpu()
+    dec_cpu = eval_outputs(maps, (8, 16, 32))
+    larger = torch.maximum(dec_gpu.abs(), dec_cpu.abs())
+    ulp = torch.ldexp(torch.ones_like(larger), torch.frexp(larger).exponent - 8)
+    in_ulps = (dec_gpu - dec_cpu).abs() / ulp
+    check(dec_gpu.dtype == torch.float32 and bool((in_ulps <= 1).all()),
+          f"bf16 decode on the card differs from the CPU by {float(in_ulps.max())} bf16 ulps")
+    emit("bf16_decode_card_vs_cpu", entries=dec_cpu.numel(),
+         differing=int((dec_gpu != dec_cpu).sum()), max_bf16_ulps=float(in_ulps.max()))
 
     # 5. main path: StreamYOLO-l at 600x960, bf16, host path then device_preproc.
     # Weights: seeded LeCun-normal convs, identity BN statistics, obj/cls
@@ -334,27 +410,45 @@ def main() -> int:
     steps["host_fps"] = 1e3 / steps["host_wall_ms"]
     emit("step_times", **steps)
 
+    # Kernel times two ways: one call between two events after a sleep
+    # (time_cuda, device_only) and a run of calls back to back divided by
+    # the count (time_back_to_back). floor_ms is a one-element torch kernel
+    # timed the same two ways: the card's own cost of a launch between events.
+    one = torch.zeros(1, device=dev)
+    floor = {"single": time_cuda(lambda: one.add_(1), iters=200, device_only=True),
+             "back_to_back": time_back_to_back(lambda: one.add_(1))}
+
     # B1 at the serving shapes: the candidates of a real steady step
     with torch.inference_mode():
         preds, _ = model(img_host.to(torch.bfloat16), buffer=host._buffer, mode="on_pipe")
         _, nms_boxes, nms_valid = select_candidates(preds, NCLS, CONF, TOPK)
     b1_ms = time_cuda(lambda: nms_keep(nms_boxes, nms_valid, NMS), iters=200,
                       device_only=True)
+    b1_b2b_ms = time_back_to_back(lambda: nms_keep(nms_boxes, nms_valid, NMS))
     b1_plain_ms = time_cuda(lambda: nms_padded(nms_boxes, nms_valid, NMS), iters=50)
     b1_bound, b1_by = bound_ms(
         nms_boxes.numel() * 4 + nms_valid.numel() * 2,
         iou_evaluations(nms_boxes, nms_valid, NMS) * NMS_OPS_PER_IOU)
+    # and at the multi-stream batch of 56 (self-test boxes, K = 200)
+    many = [nms_case(TOPK, seed=s) for s in range(56)]
+    many_boxes = torch.from_numpy(np.stack([c[0] for c in many])).to(dev)
+    many_valid = torch.from_numpy(np.stack([c[1] for c in many])).to(dev)
+    b1_b56_ms = time_cuda(lambda: nms_keep(many_boxes, many_valid, NMS), iters=200,
+                          device_only=True)
 
     # B2 at 1200x1920 -> 600x960 bf16; ten frames (69 MB > the 50 MB L2) in turn
     pool = itertools.cycle([torch.from_numpy(raws[i % len(raws)]).to(dev) for i in range(10)])
     b2_ms = time_cuda(lambda: downsample2x(next(pool), out_dtype=torch.bfloat16, fused=True),
                       iters=200, device_only=True)
+    b2_b2b_ms = time_back_to_back(
+        lambda: downsample2x(next(pool), out_dtype=torch.bfloat16, fused=True))
     b2_plain_ms = time_cuda(lambda: downsample2x_plain(next(pool), torch.bfloat16, True),
                             iters=50)
     as_float = itertools.cycle([f.permute(2, 0, 1)[None].float() for f in
                                 (next(pool) for _ in range(10))])
     b2_lib_ms = time_cuda(lambda: torch.nn.functional.avg_pool2d(next(as_float), 2), iters=200,
                           device_only=True)
+    b2_lib_b2b_ms = time_back_to_back(lambda: torch.nn.functional.avg_pool2d(next(as_float), 2))
     h, w = raws[0].shape[:2]
     n_out = (h // 2) * (w // 2) * 3
     b2_bound, b2_by = bound_ms(h * w * 3 + n_out * 2, n_out * PREPROC_OPS_PER_VALUE)
@@ -365,6 +459,8 @@ def main() -> int:
          "launches": launches["nms"], "max_abs_err": nms_err, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
+         "ms_back_to_back": b1_b2b_ms, "ms_batch56": b1_b56_ms, "floor_ms": floor,
+         "ptxas": ptxas.get("nms"),
          "shape": f"B=1 K={nms_boxes.shape[1]} valid={int(nms_valid.sum())}"},
         {"name": "downsample2x (B2)", "route": "cuda",
          "source": "streamyolo_torch/csrc/preproc.cu",
@@ -372,6 +468,8 @@ def main() -> int:
          "launches": launches["preproc"], "max_abs_err": pre_err, "ms": b2_ms,
          "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": b2_lib_ms, "max_abs_diff_vs_plain": pre_err, "kernel_ms": b2_ms,
+         "ms_back_to_back": b2_b2b_ms, "library_ms_back_to_back": b2_lib_b2b_ms,
+         "floor_ms": floor, "ptxas": ptxas.get("preproc"),
          "shape": f"{h}x{w}x3 uint8 -> {h // 2}x{w // 2}x3 bf16 fused"},
     ]
     print(smi, flush=True)

@@ -6,7 +6,9 @@ cls/obj biases start at ``-log((1 - p) / p)``, p = 1e-2. The head returns
 raw NCHW maps ordered (reg, obj, cls); ``eval_outputs`` applies the sigmoid
 to obj/cls only, flattens the anchors row-major per level with the levels
 in stride order, and decodes ``xy = (pred + grid) * stride``,
-``wh = exp(pred) * stride``.
+``wh = exp(pred) * stride``. The sigmoid and the exp run in the maps' own
+dtype (bf16 on the serving path) and the result is float32, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -119,20 +121,26 @@ def flatten_levels(outputs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def decode_outputs(flat: torch.Tensor, grid_xy: torch.Tensor,
                    strides: torch.Tensor) -> torch.Tensor:
-    """Raw flattened [B, N, 5+C] -> (cx, cy, w, h) in pixels; obj/cls pass."""
+    """Raw flattened [B, N, 5+C] -> (cx, cy, w, h) in pixels; obj/cls pass.
+
+    ``exp`` runs in ``flat``'s dtype; the float32 grid and strides promote
+    xy and wh to float32, and the obj/cls channels are promoted at the
+    concatenation, as in the JAX package."""
     strides = strides[None, :, None]
     xy = (flat[..., :2] + grid_xy[None]) * strides
     wh = torch.exp(flat[..., 2:4]) * strides
-    return torch.cat([xy, wh, flat[..., 4:]], dim=-1)
+    return torch.cat([xy, wh, flat[..., 4:].float()], dim=-1)
 
 
 def eval_outputs(outputs: Sequence[torch.Tensor], strides: Sequence[int]) -> torch.Tensor:
     """Sigmoid obj/cls, flatten, decode -> float32 [B, N, 5+C].
 
-    The maps are cast to float32 first: the JAX package promotes to float32
-    at the decode as well (its grid constants are float32)."""
+    Rounds where the JAX package rounds: its ``jax.nn.sigmoid`` lowers to
+    negate, exp, add and divide, each rounded to the maps' dtype, so the
+    sigmoid is written out as those four ops (``torch.sigmoid`` rounds once
+    and differs in bf16)."""
     hw = tuple(tuple(int(d) for d in o.shape[-2:]) for o in outputs)
     grid_xy, exp_strides = _device_grids(hw, tuple(strides), outputs[0].device)
-    flat = flatten_levels(outputs).float()
-    flat = torch.cat([flat[..., :4], torch.sigmoid(flat[..., 4:])], dim=-1)
+    flat = flatten_levels(outputs)
+    flat = torch.cat([flat[..., :4], 1 / (1 + torch.exp(-flat[..., 4:]))], dim=-1)
     return decode_outputs(flat, grid_xy, exp_strides)

@@ -2,10 +2,14 @@
 
 Replaces the TPU kernel ``streamyolo_tpu/ops/nms_pallas.py::_nms_kernel``
 (entry ``nms_padded_pallas``). The CUDA source is ``csrc/nms.cu``: one block
-per image, boxes and keep mask in shared memory, the exact greedy sweep.
-Bound on an H100: at the serving K = 200 the kernel moves ~3.6 KB and does
-at most K^2/2 IoUs, so launch latency and its K barriers bound it, not bytes
-or FLOPs; the design keeps the whole chain on chip after one load.
+per image; all threads build the suppression bitmask (iou > thr for every
+pair j > i, packed in 32-bit words in shared memory), then one warp runs the
+exact greedy scan over it with no block barrier, 32 rows per shuffle.
+Bound on an H100: at the serving K = 200 the kernel moves ~3.6 KB and the
+greedy result needs at most K^2/2 IoUs, so it is far from the byte and
+operation bounds; what holds it back is the launch, the load, the bitmask's
+K^2/2 IoUs on the one SM of the image's block, and the scan's chain of K
+dependent bit tests (one shuffle and ~32 shared-memory loads per 32 rows).
 
 ``nms_keep`` takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises. ``nms_keep.launches`` counts the

@@ -4,10 +4,13 @@ PyTorch version.
 Replaces the TPU kernel ``streamyolo_tpu/ops/preproc_pallas.py::_kernel``
 (entry ``downsample2x_bilinear``): a [H, W, 3] uint8 frame -> the
 [H/2, W/2, 3] 2x2 box average, which is cv2 ``INTER_LINEAR`` at exactly
-0.5. The CUDA source is ``csrc/preproc.cu``, one thread per output pixel.
-Bound on an H100: bytes (1200x1920 -> 600x960 bf16 reads 6.91 MB and writes
-3.46 MB, ~3.1 us at 3.35 TB/s); the fused mode folds the detector's rounding,
-cast and layout into the same single pass.
+0.5. The CUDA source is ``csrc/preproc.cu``: a 2-D grid (output row from
+``blockIdx.y``), each thread a run of 8 output pixels read with 16-byte
+loads and written with 16-byte stores; a frame whose rows are not on the
+16-byte grid (misaligned ``data_ptr``, W not a multiple of 16) takes the
+kernel's per-pixel path. Bound on an H100: bytes (1200x1920 -> 600x960 bf16
+reads 6.91 MB and writes 3.46 MB, ~3.1 us at 3.35 TB/s); the fused mode
+folds the detector's rounding, cast and layout into the same single pass.
 
 ``downsample2x`` takes the plain version only for tensors on the CPU; on a
 CUDA tensor it launches the kernel or raises. ``downsample2x.launches``

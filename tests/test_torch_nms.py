@@ -4,7 +4,8 @@ the [K, 8] rows to atol 1e-5 (it is the same float32 values gathered, so in
 practice it is exact too).
 
 The JAX side runs its Pallas kernel in interpret mode, as its own tests do.
-Tests of kernel B1 itself need the card (``-m cuda``) and skip here."""
+Tests of kernel B1 itself need the card (``-m cuda``) and skip here; the
+arithmetic of its division-free threshold test is checked on the CPU."""
 
 import numpy as np
 import pytest
@@ -139,5 +140,66 @@ def test_nms_kernel_rejects_bad_input():
     with pytest.raises(ValueError):
         nms_keep(torch.zeros(1, 1025, 4, device="cuda"),
                  torch.ones(1, 1025, dtype=torch.bool, device="cuda"), 0.5)
-    with pytest.raises(ValueError):
-        nms_keep(boxes.transpose(0, 1), valid.t(), 0.5)
+    with pytest.raises(ValueError):  # a view that is not contiguous
+        nms_keep(torch.zeros(1, 8, 8, device="cuda")[..., :4], valid, 0.5)
+
+
+def edge_case(name):
+    """(boxes [B, K, 4], valid [B, K], thr) of the kernel's edge cases: K at
+    the edges of its 32-row chunks, no valid box, 200 identical boxes (one
+    keeper, the longest suppression) and the multi-stream batch of 56."""
+    k, b = {"k1": (1, 8), "k31": (31, 8), "k33": (33, 8), "k1024": (1024, 8),
+            "all_invalid": (200, 8), "all_identical": (200, 8), "batch56": (200, 56)}[name]
+    cases = [selftest_case(k, seed=1000 * k + s) for s in range(b)]
+    boxes, valid = np.stack([c[0] for c in cases]), np.stack([c[1] for c in cases])
+    if name == "all_invalid":
+        valid[:] = False
+    if name == "all_identical":
+        boxes[:] = boxes[:, :1]
+        valid[:] = True
+    return boxes, valid, 0.65
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k1", "k31", "k33", "k1024", "all_invalid", "all_identical",
+                                  "batch56"])
+def test_nms_kernel_edge_cases_on_card(name):
+    require_cuda()
+    boxes, valid, thr = edge_case(name)
+    boxes, valid = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+    got = nms_keep(boxes, valid, thr).cpu()
+    want = tnms.nms_padded_sequential(boxes.cpu(), valid.cpu(), thr)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(tnms.nms_padded(boxes, valid, thr).cpu().numpy(), want.numpy())
+    if name == "all_identical":
+        assert got[:, 0].all() and not got[:, 1:].any()
+    if name == "all_invalid":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.5, 0.65, 0.0, 1e-40, 2e-40])
+def test_division_free_threshold_matches_divide(thr):
+    """Kernel B1 decides ``fl(inter / u) > thr`` without the divide: the
+    quotient rounds above thr exactly when ``inter > mid * u``, mid halfway
+    between thr and the next float up (exact in double), or on it when that
+    next float is even. Held against the float32 divide on random pairs, on
+    pairs next to the boundary and on exact ties (subnormal thresholds)."""
+    rng = np.random.default_rng(0)
+    t = np.float32(thr)
+    up = np.nextafter(t, np.float32(np.inf))
+    mid = (np.float64(t) + np.float64(up)) / 2
+    tie_up = (up.view(np.uint32) & 1) == 0
+    u = rng.uniform(1e-3, 1e5, 100_000).astype(np.float32)
+    near = (mid * u.astype(np.float64)).astype(np.float32)
+    pow2 = np.float32(2.0) ** np.arange(1, 40, dtype=np.float32)
+    inter = np.concatenate([near, np.nextafter(near, np.float32(0)),
+                            np.nextafter(near, np.float32(np.inf)),
+                            rng.uniform(0, 1e5, 100_000).astype(np.float32),
+                            (mid * pow2.astype(np.float64)).astype(np.float32)])
+    u = np.concatenate([u, u, u, u, pow2])
+    with np.errstate(under="ignore"):
+        want = (inter / u) > t  # float32 divide, round to nearest even
+    a, p = inter.astype(np.float64), mid * u.astype(np.float64)
+    got = (a > p) | (tie_up & (a == p) & np.isfinite(inter))
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()

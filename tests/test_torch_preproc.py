@@ -56,10 +56,19 @@ def test_downsample_rejects_bad_frames():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(64, 96), (60, 32), (1200, 1920)])
-def test_downsample_kernel_matches_plain_on_card(h, w):
+@pytest.mark.parametrize("h,w,offset", [(64, 96, 0), (60, 32, 0), (1200, 1920, 0), (2, 2, 0),
+                                        (2, 34, 0), (1200, 1922, 0), (64, 96, 1),
+                                        (1200, 1920, 1)])
+def test_downsample_kernel_matches_plain_on_card(h, w, offset):
+    """Every shape, mode and dtype bit-exact; ``offset`` puts the frame's
+    data_ptr off the 16-byte grid (the kernel's per-pixel path), as does a
+    width that is not a multiple of 16."""
     require_cuda()
     f = torch.from_numpy(frame(h, w)).cuda()
+    if offset:
+        store = torch.empty(f.numel() + 16, dtype=torch.uint8, device="cuda")
+        f = store[offset:offset + f.numel()].view(h, w, 3).copy_(f)
+        assert f.data_ptr() % 16 != 0 and f.is_contiguous()
     for dtype in (torch.float32, torch.bfloat16):
         for fused in (False, True):
             before = downsample2x.launches
