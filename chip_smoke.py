@@ -10,10 +10,18 @@ decode of the card against the CPU's, serves StreamYOLO-l at 600x960
 through ``CUDAStreamDetector`` (host path and ``device_preproc``) with
 random weights from a seed, checks the outputs (the card's fp32 step against
 the CPU, bf16 against fp32), and times the step and each kernel with CUDA
-events, one call at a time and back to back. Each phase prints one JSON line; the line before the last lists the
-kernels, and the last line is ``{"ok": true, "device": {...}}``. Any failed
-check raises, so the script exits non-zero and prints no result. Imports
-nothing of JAX.
+events, one call at a time and back to back. Then it serves 8 camera streams
+through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
+per-stream restart, fp32 rows against ``CUDAStreamDetector``), times the
+batched step at 1, 8 and 56 streams, scores the port with the simulated-clock
+sAP rehearsal (``streamyolo_torch/tools/sap_rehearsal.py``: 2 synthetic
+sequences of 30 raw 1200x1920 frames, ``device_preproc``, measured latencies
+replayed by ``SimClock``, pseudo ground truth, pairing, native COCOeval), and
+runs one sequence through the wall-clock streaming loop. Each phase prints
+one JSON line; the line before the last lists the kernels, with their
+launches on every path, and the last line is ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero and prints
+no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -32,6 +41,13 @@ SEED = 0
 INPUT = (600, 960)  # the serving operating point of bench.py
 CONF, NMS, TOPK, NCLS = 0.01, 0.65, 200, 8
 STEADY_STEPS = 50
+MULTI_N, MULTI_STEPS, MULTI_RESET_AT, MULTI_RESET_ROW = 8, 24, 10, 3
+MULTI_TIMED_N = (1, 8, 56)
+MODEL_SIZE = "l"
+REHEARSAL_SEQS, REHEARSAL_FRAMES, REHEARSAL_SAMPLES = 2, 30, 20
+# random weights score every box near sigmoid(0)^2 = 0.25: the pseudo ground
+# truth keeps the oracle run's top tenth of scores instead of a fixed cut
+PGT_SCORE_PERCENTILE = 90
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
@@ -195,6 +211,255 @@ def bf16_layer_errors(m32, m16, x) -> list:
             errs.append(float((got.float() - out).norm() / out.norm().clamp(min=1e-12)))
     return errs
 
+def fp32_errors(got, want) -> dict:
+    """Box error relative to |box| + 1 and probability error, the stated
+    fp32 card-vs-reference measures (bounds 1e-3 and 1e-4)."""
+    box = float(((got[..., :4] - want[..., :4]).abs() / (want[..., :4].abs() + 1.0)).max())
+    prob = float((got[..., 4:] - want[..., 4:]).abs().max())
+    return {"box_rel_err": box, "prob_abs_err": prob}
+
+
+def stream_batch(pool, t: int, n: int) -> np.ndarray:
+    """Frames of step ``t`` for ``n`` streams: stream ``i`` shows
+    ``pool[(t + 3 i) % len(pool)]``, so the sequences differ."""
+    return np.stack([pool[(t + 3 * i) % len(pool)] for i in range(n)])
+
+
+def phase_multi_stream(model, m32, pool, kw) -> dict:
+    """8 streams through ``MultiStreamDetector`` (bf16, full width): a star
+    step and ``MULTI_STEPS`` steady steps, ``reset(3)`` before step 10. Checks
+    one B1 launch per step, stable buffer memory, the restarted row against
+    a fresh star step and the other rows against their carry (bit for bit:
+    same batch, same programs), the card's postprocess against the plain one
+    on the same predictions, and one row of an fp32 multi-stream run
+    against ``CUDAStreamDetector`` fed the same frames (TF32 off)."""
+    import torch
+
+    from streamyolo_torch.ops.nms import postprocess_fixed, select_candidates
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.stream import CUDAStreamDetector, MultiStreamDetector
+
+    dev = next(model.parameters()).device
+    multi = MultiStreamDetector(model, MULTI_N, device=dev, **kw)
+    multi.warmup(2)
+
+    def rows_of(preds):
+        return postprocess_fixed(preds, NCLS, CONF, NMS, TOPK)
+
+    nms_keep.launches = 0
+    multi.reset()
+    restart = {}
+    for t in range(1 + MULTI_STEPS):
+        frames = stream_batch(pool, t, MULTI_N)
+        if t == MULTI_RESET_AT:
+            multi.reset(MULTI_RESET_ROW)
+            before = [b.clone() for b in multi._buffer]
+        launched = nms_keep.launches
+        multi(frames, preprocessed=True)
+        check(nms_keep.launches == launched + 1,
+              f"multi-stream step {t} launched B1 {nms_keep.launches - launched} times")
+        rows = multi.last_rows
+        check(rows.shape == (MULTI_N, TOPK, 8) and np.isfinite(rows).all(),
+              f"multi-stream step {t}: rows not a finite [{MULTI_N}, {TOPK}, 8] block")
+        if t == 0:
+            ptrs = [b.data_ptr() for b in multi._buffer]
+            check(all(b.is_contiguous(memory_format=torch.channels_last)
+                      for b in multi._buffer), "multi-stream buffer is not channels_last")
+        check([b.data_ptr() for b in multi._buffer] == ptrs,
+              f"multi-stream buffer reallocated at step {t}")
+        if t == MULTI_RESET_AT:
+            # verification launches are not the path's: restore the count
+            saved = nms_keep.launches
+            images = torch.from_numpy(frames).to(dev)
+            with torch.inference_mode():
+                star_p, _ = model(images, mode="on_pipe")
+                carry_p, _ = model(images, buffer=tuple(before), mode="on_pipe")
+                want_star, want_carry = rows_of(star_p).cpu(), rows_of(carry_p).cpu()
+                plain = rows_of(carry_p.cpu())
+                _, nms_boxes, nms_valid = select_candidates(carry_p, NCLS, CONF, TOPK)
+            nms_keep.launches = saved
+            got = torch.from_numpy(rows)
+            r = MULTI_RESET_ROW
+            check(torch.equal(got[r], want_star[r]),
+                  "after reset(3), row 3 differs from a fresh star step")
+            others = [i for i in range(MULTI_N) if i != r]
+            check(torch.equal(got[others], want_carry[others]),
+                  "after reset(3), the other rows lost their carry")
+            check(not torch.equal(want_star[r], want_carry[r]),
+                  "star and carry rows are equal: the reset check is vacuous")
+            check(torch.equal(want_carry, plain),
+                  "batched postprocess on the card differs from the plain one")
+            restart = {"row": r, "at_step": t, "row_equals_fresh_star": True,
+                       "other_rows_equal_carry": True,
+                       "kernel_rows_equal_plain": True}
+    launches = nms_keep.launches
+    check(launches == 1 + MULTI_STEPS,
+          f"B1 launched {launches} times in {1 + MULTI_STEPS} multi-stream steps")
+    check(not multi._pending_star.any(), "pending stars were not cleared")
+    kept = [int((multi.last_rows[i][:, 7] > 0.5).sum()) for i in range(MULTI_N)]
+
+    # fp32: row 5 of the batched detector against the single-stream one
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw32 = {**kw, "use_bf16": False}
+    multi32 = MultiStreamDetector(m32, MULTI_N, device=dev, **kw32)
+    single = CUDAStreamDetector(m32, device=dev, **kw32)
+    seen = []
+    hook = m32.register_forward_hook(lambda mod, inp, out: seen.append(out[0].float()))
+    row, errs = 5, []
+    for t in range(4):
+        frames = stream_batch(pool, t, MULTI_N)
+        multi32(frames, preprocessed=True)
+        single(frames[row], preprocessed=True)
+        errs.append(fp32_errors(seen[-2][row].cpu(), seen[-1][0].cpu()))
+    hook.remove()
+    torch.backends.cudnn.allow_tf32 = True
+    fp32 = {k: max(e[k] for e in errs) for k in errs[0]}
+    # stated tolerance, as for the card against the CPU: cuDNN may pick other
+    # algorithms at batch 8 than at batch 1
+    check(fp32["box_rel_err"] < 1e-3 and fp32["prob_abs_err"] < 1e-4,
+          f"fp32 multi-stream row vs CUDAStreamDetector out of bound: {fp32}")
+    emit("multi_stream", model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
+         streams=MULTI_N, steps=1 + MULTI_STEPS, b1_launches=launches,
+         b1_launches_per_step=launches / (1 + MULTI_STEPS), restart=restart,
+         buffer_data_ptr_stable=True, kept_last_step=kept,
+         fp32_row_vs_single_stream=dict(row=row, steps=len(errs), **fp32))
+    return {"launches": launches, "nms_boxes": nms_boxes, "nms_valid": nms_valid}
+
+
+def phase_multi_stream_times(model, pool, kw) -> None:
+    """``MultiStreamDetector`` at N = 1, 8, 56: ``step`` device ms (CUDA
+    events, median of 20), ``__call__`` wall ms on preprocessed frames
+    (median of 20), frames/s = N * 1000 / wall, and the peak device memory."""
+    import torch
+
+    from streamyolo_torch.stream import MultiStreamDetector
+
+    dev = torch.device("cuda")
+    out = {}
+    for n in MULTI_TIMED_N:
+        det = MultiStreamDetector(model, n, **kw)
+        frames = stream_batch(pool, 0, n)
+        images = torch.from_numpy(frames).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        det.warmup(2)
+        det.reset()
+        det.step(images)  # star
+        device_ms = time_cuda(lambda: det.step(images), iters=20)
+        wall = []
+        for _ in range(20):
+            t = time.perf_counter()
+            det(frames, preprocessed=True)  # ends in the [N, K, 8] D2H copy
+            wall.append((time.perf_counter() - t) * 1e3)
+        wall_ms = statistics.median(wall)
+        out[f"n{n}"] = {"step_device_ms": device_ms, "call_wall_ms": wall_ms,
+                        "frames_per_s": n * 1e3 / wall_ms,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del det, images
+        torch.cuda.empty_cache()
+    # largest activation at N = 56: the stem's [56, 64, 300, 480] bf16 map
+    emit("multi_stream_times", model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
+         stem_map_gb_n56=56 * 64 * (INPUT[0] // 2) * (INPUT[1] // 2) * 2 / 1e9, **out)
+
+
+def phase_sap_rehearsal(out_dir, device="cuda"):
+    """The simulated-clock sAP rehearsal through the tool's functions: an
+    in-memory synthetic fixture at Argoverse-HD's raw size, a
+    ``device_preproc`` StreamYOLO-l detector from seeded weights (B2 and
+    B1), measured per-call walls replayed by ``SimClock``, pseudo ground
+    truth from the detector's every-frame run, pairing and native COCOeval.
+    Returns the detector, the fixture and the path's kernel launches."""
+    from streamyolo_torch.data import COCO, SyntheticArgoverse
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import Empirical, SimClock, run_streaming_detection, streaming_eval
+    from streamyolo_torch.tools import sap_rehearsal as reh
+
+    raw_size = (2 * INPUT[0], 2 * INPUT[1])
+    synth = SyntheticArgoverse(seq_lens=(REHEARSAL_FRAMES,) * REHEARSAL_SEQS,
+                               size=raw_size, seed=SEED)
+    db = COCO(synth.data)
+    det = reh.build_detector(MODEL_SIZE, input_size=INPUT, seed=SEED, in_scale=0.5,
+                             conf_thre=CONF, nms_thre=NMS, pre_nms_topk=TOPK,
+                             device_preproc=True, device=device)
+    lift_pred_biases(det.model)
+    det.warmup(3)
+
+    nms_keep.launches = 0
+    downsample2x.launches = 0
+    samples = reh.measure_per_call(det, synth.frame(db.dataset["images"][0]),
+                                   REHEARSAL_SAMPLES)
+    runtime_dist = Empirical(samples, seed=SEED)
+    oracle = reh.offline_ccf(db, det, synth.frame)
+    score_th = float(np.percentile([d["score"] for d in oracle], PGT_SCORE_PERCENTILE))
+    gt_db = reh.pseudo_ground_truth(db, oracle, score_th, out_dir)
+    run_dir = f"{out_dir}/stream_run"
+    time_info = run_streaming_detection(
+        gt_db, None, run_dir, det, clock=SimClock(), runtime_dist=runtime_dist,
+        overwrite=True, load_frame=synth.frame)
+    eval_summary, assoc = streaming_eval(gt_db, run_dir, out_dir=run_dir, overwrite=True)
+    launches = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+    # one launch of each per detector call; a streaming call that ends past
+    # a sequence's horizon is made but not recorded
+    calls = 1 + REHEARSAL_SAMPLES + len(db.imgs) + time_info["n_processed"]
+    check(launches["nms"] == launches["preproc"]
+          and calls <= launches["nms"] <= calls + REHEARSAL_SEQS,
+          f"rehearsal: {launches} kernel launches for {calls} recorded detector calls")
+
+    summary = reh.summarize(f"streamyolo_{MODEL_SIZE}", "oracle", 30.0, runtime_dist, len(samples),
+                            1.0, time_info, assoc, eval_summary)
+    stats = [float(v) for v in eval_summary["stats"]]
+    n_total = REHEARSAL_SEQS * REHEARSAL_FRAMES
+    check(time_info["n_total"] == n_total, "rehearsal lost frames")
+    if max(samples) < 1.0 / 30:
+        check(time_info["n_processed"] == n_total and assoc["miss"] == REHEARSAL_SEQS,
+              f"sub-frame latencies but {time_info['n_processed']}/{n_total} "
+              f"processed, miss {assoc['miss']}")
+    check(all(np.isfinite(stats[:3])) and 0 <= 100 * stats[0] <= 100,
+          f"sAP not finite in [0, 100]: {stats[:3]}")
+    check(eval_summary["evaluator"] == "COCOeval_opt",
+          f"scored by {eval_summary['evaluator']}, not the native COCOeval")
+    emit("sap_rehearsal", fixture=f"{REHEARSAL_SEQS}x{REHEARSAL_FRAMES} frames "
+         f"{raw_size[0]}x{raw_size[1]} synthetic, in memory", model=f"StreamYOLO-{MODEL_SIZE}",
+         input=list(INPUT), dtype="bfloat16", device_preproc=True,
+         latency_ms={"mean": 1e3 * runtime_dist.mean(), "min": 1e3 * runtime_dist.min(),
+                     "max": 1e3 * runtime_dist.max(), "n_samples": len(samples)},
+         frames={"processed": time_info["n_processed"], "total": time_info["n_total"]},
+         association=assoc, sAP=100 * stats[0], sAP50=100 * stats[1], sAP75=100 * stats[2],
+         pseudo_gt_score_th=score_th, pseudo_gt_annotations=len(gt_db.anns),
+         oracle_detections=len(oracle), evaluator=eval_summary["evaluator"],
+         summary=summary, launches=launches)
+    return det, synth, launches
+
+
+def phase_wallclock_stream(det, synth) -> dict:
+    """One 30-frame sequence through ``stream_sequence`` with ``WallClock``:
+    the production loop (about one second)."""
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import WallClock, stream_sequence
+
+    frames = [synth.frame(img) for img in synth.data["images"] if img["sid"] == 0]
+    nms_keep.launches = 0
+    downsample2x.launches = 0
+    res = stream_sequence(frames, det, fps=30.0, clock=WallClock())
+    launches = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+    ts, fidx, rt = res["timestamps"], res["input_fidx"], res["runtime"]
+    horizon = len(frames) / 30.0
+    check(len(ts) > 0, "wall-clock stream processed no frame")
+    check(all(b > a for a, b in zip(ts, ts[1:])) and ts[-1] < horizon,
+          "wall-clock timestamps not increasing below the horizon")
+    check(all(b >= a for a, b in zip(fidx, fidx[1:])), "input_fidx decreases")
+    check(all(r > 0 for r in rt), "a runtime is not > 0")
+    check(launches["nms"] == launches["preproc"] >= len(ts),
+          f"wall-clock stream: kernel launches {launches} for {len(ts)} results")
+    rt_ms = [1e3 * r for r in rt]
+    emit("wallclock_stream", frames=len(frames), processed=len(ts),
+         runtime_ms={"mean": statistics.mean(rt_ms), "median": statistics.median(rt_ms),
+                     "min": min(rt_ms), "max": max(rt_ms)},
+         launches=launches)
+    return launches
+
 
 def main() -> int:
     import torch
@@ -302,7 +567,7 @@ def main() -> int:
     rng = np.random.RandomState(SEED)
     frames = [rng.randint(0, 256, (*INPUT, 3), np.uint8) for _ in range(4)]
     raws = [rng.randint(0, 256, (2 * INPUT[0], 2 * INPUT[1], 3), np.uint8) for _ in range(4)]
-    m_gpu = build_streamyolo("l", NCLS, device=dev, generator=torch.Generator().manual_seed(SEED))
+    m_gpu = build_streamyolo(MODEL_SIZE, NCLS, device=dev, generator=torch.Generator().manual_seed(SEED))
     lift_pred_biases(m_gpu)
     m_cpu = copy.deepcopy(m_gpu).cpu()
     model = copy.deepcopy(m_gpu).to(torch.bfloat16)
@@ -353,14 +618,11 @@ def main() -> int:
         b_star, _ = model(x0.to(dev), mode="on_pipe")
     fp32_err = {}
     for name, c, g in (("star", c_star, g_star), ("steady", c_steady, g_steady)):
-        g = g.cpu()
-        box_err = float(((g[..., :4] - c[..., :4]).abs() / (c[..., :4].abs() + 1.0)).max())
-        prob_err = float((g[..., 4:] - c[..., 4:]).abs().max())
-        fp32_err[name] = {"box_rel_err": box_err, "prob_abs_err": prob_err}
+        err = fp32_err[name] = fp32_errors(g.cpu(), c)
         # stated tolerance: cuDNN and the CPU sum in different orders through
         # ~100 fp32 layers; 1e-3 relative on boxes, 1e-4 absolute on probabilities
-        check(box_err < 1e-3 and prob_err < 1e-4,
-              f"fp32 card vs CPU {name}: box rel {box_err:.3g}, prob {prob_err:.3g}")
+        check(err["box_rel_err"] < 1e-3 and err["prob_abs_err"] < 1e-4,
+              f"fp32 card vs CPU {name}: {err}")
     with torch.inference_mode():
         rows_kernel = postprocess_fixed(g_steady, NCLS, CONF, NMS, TOPK)
         rows_plain = postprocess_fixed(g_steady.cpu(), NCLS, CONF, NMS, TOPK)
@@ -390,7 +652,7 @@ def main() -> int:
          rows_kernel_equal_plain=True, keep_mask_rows_compared=prefix,
          bf16_vs_fp32=b_err)
     torch.backends.cudnn.allow_tf32 = True
-    del m_gpu, m_cpu
+    del m_cpu
 
     # 6. times (CUDA events, median of >= 50 after warmup)
     img_host = torch.from_numpy(frames[0]).to(dev)[None]
@@ -409,6 +671,19 @@ def main() -> int:
         steps[name + "_wall_ms"] = statistics.median(wall)
     steps["host_fps"] = 1e3 / steps["host_wall_ms"]
     emit("step_times", **steps)
+
+    # 7. the N-camera batched step, its times, the sAP rehearsal and the
+    # wall-clock streaming loop; each path's kernel launches are counted
+    # from 0 just before it and read just after
+    pool = [np.random.RandomState(SEED + 1 + i).randint(0, 256, (*INPUT, 3), np.uint8)
+            for i in range(16)]
+    multi = phase_multi_stream(model, m_gpu, pool, kw)
+    del m_gpu
+    phase_multi_stream_times(model, pool, kw)
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_rehearsal"
+    rehearsal_det, synth, rehearsal_launches = phase_sap_rehearsal(str(out_dir))
+    wallclock_launches = phase_wallclock_stream(rehearsal_det, synth)
+    del rehearsal_det, synth
 
     # Kernel times two ways: one call between two events after a sleep
     # (time_cuda, device_only) and a run of calls back to back divided by
@@ -436,6 +711,16 @@ def main() -> int:
     b1_b56_ms = time_cuda(lambda: nms_keep(many_boxes, many_valid, NMS), iters=200,
                           device_only=True)
 
+    # and at B = 8 on the candidates of a real multi-stream step
+    b8_boxes, b8_valid = multi["nms_boxes"], multi["nms_valid"]
+    b1_b8_ms = time_cuda(lambda: nms_keep(b8_boxes, b8_valid, NMS), iters=200,
+                         device_only=True)
+    b1_b8_b2b_ms = time_back_to_back(lambda: nms_keep(b8_boxes, b8_valid, NMS))
+    b1_b8_plain_ms = time_cuda(lambda: nms_padded(b8_boxes, b8_valid, NMS), iters=50)
+    b1_b8_bound, b1_b8_by = bound_ms(
+        b8_boxes.numel() * 4 + b8_valid.numel() * 2,
+        iou_evaluations(b8_boxes, b8_valid, NMS) * NMS_OPS_PER_IOU)
+
     # B2 at 1200x1920 -> 600x960 bf16; ten frames (69 MB > the 50 MB L2) in turn
     pool = itertools.cycle([torch.from_numpy(raws[i % len(raws)]).to(dev) for i in range(10)])
     b2_ms = time_cuda(lambda: downsample2x(next(pool), out_dtype=torch.bfloat16, fused=True),
@@ -461,7 +746,15 @@ def main() -> int:
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
          "ms_back_to_back": b1_b2b_ms, "ms_batch56": b1_b56_ms, "floor_ms": floor,
          "ptxas": ptxas.get("nms"),
-         "shape": f"B=1 K={nms_boxes.shape[1]} valid={int(nms_valid.sum())}"},
+         "shape": f"B=1 K={nms_boxes.shape[1]} valid={int(nms_valid.sum())}",
+         "launches_by_path": {"main_path": launches["nms"], "multi_stream": multi["launches"],
+                              "sap_rehearsal": rehearsal_launches["nms"],
+                              "wallclock_stream": wallclock_launches["nms"]},
+         "batch8": {"shape": f"B=8 K={b8_boxes.shape[1]} valid={int(b8_valid.sum())}, "
+                             "candidates of a real multi-stream step",
+                    "ms": b1_b8_ms, "ms_back_to_back": b1_b8_b2b_ms,
+                    "plain_ms": b1_b8_plain_ms, "bound_ms": b1_b8_bound,
+                    "bound_by": b1_b8_by}},
         {"name": "downsample2x (B2)", "route": "cuda",
          "source": "streamyolo_torch/csrc/preproc.cu",
          "replaces": "streamyolo_tpu/ops/preproc_pallas.py:33",
@@ -470,7 +763,10 @@ def main() -> int:
          "library_ms": b2_lib_ms, "max_abs_diff_vs_plain": pre_err, "kernel_ms": b2_ms,
          "ms_back_to_back": b2_b2b_ms, "library_ms_back_to_back": b2_lib_b2b_ms,
          "floor_ms": floor, "ptxas": ptxas.get("preproc"),
-         "shape": f"{h}x{w}x3 uint8 -> {h // 2}x{w // 2}x3 bf16 fused"},
+         "shape": f"{h}x{w}x3 uint8 -> {h // 2}x{w // 2}x3 bf16 fused",
+         "launches_by_path": {"main_path": launches["preproc"], "multi_stream": 0,
+                              "sap_rehearsal": rehearsal_launches["preproc"],
+                              "wallclock_stream": wallclock_launches["preproc"]}},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

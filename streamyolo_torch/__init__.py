@@ -1,7 +1,8 @@
 """StreamYOLO in PyTorch for NVIDIA Hopper (H100).
 
 Counterpart of ``streamyolo_tpu``: the same layout (``nn/``, ``models/``,
-``ops/``, ``stream/``, ``utils/``) and names, in PyTorch idiom. The Pallas
+``ops/``, ``stream/``, ``data/``, ``eval/``, ``native/``, ``utils/``,
+``tools/``) and names, in PyTorch idiom. The Pallas
 kernels of the JAX package are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``.
 

@@ -10,10 +10,12 @@ Counterpart of ``streamyolo_tpu/models/dfp_pafpn.py``:
   * ``on_pipe``: the backbone runs ONCE on the current frame and fuses with
     the carried previous-frame outputs (the DFP buffer); ``buffer=None`` is
     the star node (self-fuse). Returns ``(outputs, cur)``; ``cur`` is the
-    next buffer.
+    next buffer. With a buffer, a ``[B]`` bool ``star_mask`` selects per
+    row: a True row fuses with its own current features (a restarted
+    stream's star), the other rows with the buffer, in one batched pass
+    (``stream/online.py::MultiStreamDetector``).
 
-The ``seq`` mode and the per-row ``star_mask`` belong to the multi-stream
-slice and are not here yet. Tensors are NCHW.
+The ``seq`` mode is not here yet. Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -83,7 +85,7 @@ class DFPPAFPN(nn.Module):
             torch.cat([j(c), j(s)], dim=1) + c for j, c, s in zip(jians, cur, sup))
 
     def forward(self, x: torch.Tensor, buffer: Optional[Buffer] = None,
-                mode: str = "off_pipe"):
+                mode: str = "off_pipe", star_mask: Optional[torch.Tensor] = None):
         if mode == "off_pipe":
             if x.shape[1] == 3:
                 cur_img = sup_img = x
@@ -102,5 +104,8 @@ class DFPPAFPN(nn.Module):
         if mode == "on_pipe":
             cur = self.pafpn(x)
             sup = cur if buffer is None else tuple(buffer)
+            if buffer is not None and star_mask is not None:
+                m = star_mask.reshape(-1, 1, 1, 1)
+                sup = tuple(torch.where(m, c, s.to(c.dtype)) for c, s in zip(cur, sup))
             return self._dfp_fuse(cur, sup), cur
         raise ValueError(f"mode must be 'off_pipe' or 'on_pipe', got {mode!r}")

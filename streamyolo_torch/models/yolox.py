@@ -34,11 +34,12 @@ class StreamYOLO(nn.Module):
         return next(self.parameters()).dtype
 
     def forward(self, x: torch.Tensor, buffer: Optional[Buffer] = None,
-                mode: str = "off_pipe"):
+                mode: str = "off_pipe", star_mask: Optional[torch.Tensor] = None):
         """``off_pipe``: NHWC 6- (or 3-) channel input -> decoded
         ``[B, N, 5+C]`` (raw per-level maps in training).
         ``on_pipe``: NHWC 3-channel frame + DFP buffer (``None`` = star) ->
-        ``(decoded, new_buffer)``; the buffer is a tuple of NCHW maps."""
+        ``(decoded, new_buffer)``; the buffer is a tuple of NCHW maps, and a
+        ``[B]`` bool ``star_mask`` re-stars the True rows."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         if mode == "off_pipe":
             outputs = self.head(self.backbone(x, mode="off_pipe"))
@@ -46,7 +47,8 @@ class StreamYOLO(nn.Module):
                 return outputs
             return eval_outputs(outputs, self.head.strides)
         if mode == "on_pipe":
-            fpn_outs, new_buffer = self.backbone(x, buffer=buffer, mode="on_pipe")
+            fpn_outs, new_buffer = self.backbone(
+                x, buffer=buffer, mode="on_pipe", star_mask=star_mask)
             outputs = self.head(fpn_outs)
             return eval_outputs(outputs, self.head.strides), new_buffer
         raise ValueError(f"mode must be 'off_pipe' or 'on_pipe', got {mode!r}")
