@@ -1,12 +1,22 @@
 from streamyolo_torch.data.argoverse_classes import ARGOVERSE_CLASSES, COCO_SUBSET
 from streamyolo_torch.data.coco import COCO
+from streamyolo_torch.data.datasets import (
+    ONE_ARGOVERSEDataset,
+    STILL_ARGOVERSEDataset,
+    TWO_ARGOVERSEDataset,
+    imread,
+)
 from streamyolo_torch.data.dbcode import (
     SyntheticArgoverse,
     db_from_img_folder,
     make_synthetic_argoverse,
     pseudo_gt_from_detections,
 )
+from streamyolo_torch.data.loader import DataLoader
+from streamyolo_torch.data.transforms import DoubleValTransform, ValTransform, preproc
 
-__all__ = ["ARGOVERSE_CLASSES", "COCO", "COCO_SUBSET", "SyntheticArgoverse",
-           "db_from_img_folder", "make_synthetic_argoverse",
+__all__ = ["ARGOVERSE_CLASSES", "COCO", "COCO_SUBSET", "DataLoader",
+           "DoubleValTransform", "ONE_ARGOVERSEDataset", "STILL_ARGOVERSEDataset",
+           "SyntheticArgoverse", "TWO_ARGOVERSEDataset", "ValTransform",
+           "db_from_img_folder", "imread", "make_synthetic_argoverse", "preproc",
            "pseudo_gt_from_detections"]

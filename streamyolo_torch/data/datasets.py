@@ -1,0 +1,225 @@
+"""Argoverse-HD streaming datasets for evaluation (ONE_ / TWO_ / STILL_),
+the counterparts of ``streamyolo_tpu/data/datasets.py``.
+
+  * ``ONE_ARGOVERSEDataset``: each sample is the (current, support = t-1)
+    frame pair; the target is the labels of frame t+1 (the model predicts
+    the future) and the support target the current frame's labels.
+  * ``TWO_ARGOVERSEDataset``: support t-2, target t+2.
+  * ``STILL_ARGOVERSEDataset``: one frame, its own labels.
+
+The boundary rules are the JAX package's, quirks included: the pairing
+falls back to self-support at sequence starts and ends, and the LAST TWO
+images of the whole dataset query the annotations of the non-existent image
+id ``len(ids)`` and so get EMPTY targets. Image ids are assumed consecutive
+from 0 and equal to the dataset index.
+
+Pixels come through ``load_frame(image_dict) -> BGR uint8``: by default
+``imread`` of ``<data_dir>/Argoverse-1.1/tracking/<seq_dir>/<name>`` (cv2,
+imported only there), or e.g. ``SyntheticArgoverse.frame`` for frames kept
+in memory. The annotation tuples hold the image dicts where the JAX package
+holds file names. The ``--cache`` memmap and the train-side pieces come with
+the training slice.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+
+from streamyolo_torch.data.coco import COCO
+from streamyolo_torch.data.transforms import resize_u8
+
+
+def imread(path: str) -> np.ndarray:
+    """A BGR uint8 frame read with cv2; a clear ImportError without cv2."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path} needs cv2 (opencv-python), which is not installed; "
+            "pass a load_frame that supplies the frames instead") from e
+    frame = cv2.imread(path)
+    if frame is None:
+        raise OSError(f"cannot read {path}")
+    return frame
+
+
+class _ArgoverseBase:
+    """Shared COCO-index plumbing. ``img_size`` is (height, width)."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        json_file: str = "train.json",
+        name: str = "train",
+        img_size: Tuple[int, int] = (416, 416),
+        preproc=None,
+        load_frame: Optional[Callable[[dict], np.ndarray]] = None,
+    ):
+        self.data_dir = data_dir
+        self.json_file = json_file
+        self.coco = COCO(os.path.join(data_dir, "Argoverse-HD", "annotations", json_file))
+        self.ids = self.coco.getImgIds()
+        self.seq_dirs = self.coco.dataset["seq_dirs"]
+        self.class_ids = sorted(self.coco.getCatIds())
+        self.name = name
+        self.img_size = tuple(img_size)
+        self.preproc = preproc
+        self.load_frame = load_frame or self._imread
+        self.annotations = [self._load_anno_from_id(i) for i in self.ids]
+
+    def __len__(self):
+        return len(self.ids)
+
+    def _clean_objs(self, annotations, width, height) -> np.ndarray:
+        """COCO anns -> [n, 5] (x1, y1, x2, y2, cls) clipped, then scaled by
+        the letterbox ratio."""
+        objs = []
+        for obj in annotations:
+            x1 = max(0, obj["bbox"][0])
+            y1 = max(0, obj["bbox"][1])
+            x2 = min(width - 1, x1 + max(0, obj["bbox"][2]))
+            y2 = min(height - 1, y1 + max(0, obj["bbox"][3]))
+            if obj["area"] > 0 and x2 >= x1 and y2 >= y1:
+                objs.append((x1, y1, x2, y2, self.class_ids.index(obj["category_id"])))
+        res = np.zeros((len(objs), 5), dtype=np.float64)
+        for ix, o in enumerate(objs):
+            res[ix] = o
+        r = min(self.img_size[0] / height, self.img_size[1] / width)
+        res[:, :4] *= r
+        return res
+
+    def _anns_of(self, img_id: int):
+        return self.coco.loadAnns(self.coco.getAnnIds(imgIds=[int(img_id)], iscrowd=False))
+
+    def _file_name(self, im_ann) -> str:
+        return os.path.join(self.data_dir, "Argoverse-1.1", "tracking",
+                            self.seq_dirs[im_ann["sid"]], im_ann["name"])
+
+    def _imread(self, im_ann) -> np.ndarray:
+        return imread(self._file_name(im_ann))
+
+    def load_anno(self, index):
+        return self.annotations[index][0]
+
+    def _read_resized(self, im_ann) -> np.ndarray:
+        img = self.load_frame(im_ann)
+        r = min(self.img_size[0] / img.shape[0], self.img_size[1] / img.shape[1])
+        return resize_u8(img, int(img.shape[0] * r), int(img.shape[1] * r))
+
+
+class ONE_ARGOVERSEDataset(_ArgoverseBase):
+    """1x velocity: support frame t-1, target labels t+1."""
+
+    def _load_anno_from_id(self, id_):
+        im_ann = self.coco.loadImgs(id_)[0]
+        width, height = im_ann["width"], im_ann["height"]
+        images = self.coco.dataset["images"]
+        seq_len = len(self.ids)
+
+        if images[int(id_)]["fid"] == 0:
+            im_ann_support = im_ann
+        elif int(id_) == seq_len - 1:
+            im_ann_support = im_ann
+        elif images[int(id_ + 1)]["fid"] == 0:
+            im_ann_support = im_ann
+        else:
+            im_ann_support = self.coco.loadImgs(id_ - 1)[0]
+
+        if id_ in (seq_len - 1, seq_len - 2):
+            annotations = self.coco.img_to_anns.get(int(seq_len), [])
+        elif images[int(id_)]["fid"] == 0:
+            annotations = self._anns_of(id_)
+        elif images[int(id_ + 1)]["fid"] == 0:
+            annotations = self._anns_of(id_)
+        else:
+            annotations = self._anns_of(id_ + 1)
+
+        res = self._clean_objs(annotations, width, height)
+        support_res = self._clean_objs(self._anns_of(id_), width, height)
+        r = min(self.img_size[0] / height, self.img_size[1] / width)
+        return (res, support_res, (height, width), (int(height * r), int(width * r)),
+                im_ann, im_ann_support)
+
+    def pull_item(self, index):
+        id_ = self.ids[index]
+        res, support_res, img_info, _, im_ann, im_ann_support = self.annotations[index]
+        img = self._read_resized(im_ann)
+        support_img = self._read_resized(im_ann_support)
+        return img, support_img, res.copy(), support_res.copy(), img_info, np.array([id_])
+
+    def __getitem__(self, index):
+        img, support_img, target, support_target, img_info, img_id = self.pull_item(index)
+        if self.preproc is not None:
+            img, support_img, target, support_target = self.preproc(
+                (img, support_img), (target, support_target), self.img_size)
+        return (np.concatenate((img, support_img), axis=-1), (target, support_target),
+                img_info, img_id)
+
+
+class TWO_ARGOVERSEDataset(ONE_ARGOVERSEDataset):
+    """2x velocity: support frame t-2, target labels t+2."""
+
+    def _load_anno_from_id(self, id_):
+        im_ann = self.coco.loadImgs(id_)[0]
+        width, height = im_ann["width"], im_ann["height"]
+        images = self.coco.dataset["images"]
+        seq_len = len(self.ids)
+
+        if images[int(id_)]["fid"] == 0:
+            im_ann_support = im_ann
+        elif images[int(id_)]["fid"] == 1:
+            im_ann_support = self.coco.loadImgs(id_ - 1)[0]
+        elif int(id_) == seq_len - 1:
+            im_ann_support = im_ann
+        elif int(id_ + 1) == seq_len - 1:
+            im_ann_support = self.coco.loadImgs(id_ - 1)[0]
+        elif images[int(id_ + 1)]["fid"] == 0:
+            im_ann_support = im_ann
+        elif images[int(id_ + 2)]["fid"] == 0:
+            im_ann_support = self.coco.loadImgs(id_ - 1)[0]
+        else:
+            im_ann_support = self.coco.loadImgs(id_ - 2)[0]
+
+        if id_ in (seq_len - 1, seq_len - 2):
+            annotations = self.coco.img_to_anns.get(int(seq_len), [])
+        elif images[int(id_)]["fid"] == 0:
+            annotations = self._anns_of(id_)
+        elif images[int(id_)]["fid"] == 1:
+            annotations = self._anns_of(id_ + 1)
+        elif images[int(id_ + 1)]["fid"] == 0:
+            annotations = self._anns_of(id_)
+        elif images[int(id_ + 2)]["fid"] == 0:
+            annotations = self._anns_of(id_ + 1)
+        else:
+            annotations = self._anns_of(id_ + 2)
+
+        res = self._clean_objs(annotations, width, height)
+        support_res = self._clean_objs(self._anns_of(id_), width, height)
+        r = min(self.img_size[0] / height, self.img_size[1] / width)
+        return (res, support_res, (height, width), (int(height * r), int(width * r)),
+                im_ann, im_ann_support)
+
+
+class STILL_ARGOVERSEDataset(_ArgoverseBase):
+    """Single-frame dataset: labels of frame t."""
+
+    def _load_anno_from_id(self, id_):
+        im_ann = self.coco.loadImgs(id_)[0]
+        width, height = im_ann["width"], im_ann["height"]
+        res = self._clean_objs(self._anns_of(id_), width, height)
+        r = min(self.img_size[0] / height, self.img_size[1] / width)
+        return res, (height, width), (int(height * r), int(width * r)), im_ann
+
+    def pull_item(self, index):
+        id_ = self.ids[index]
+        res, img_info, _, im_ann = self.annotations[index]
+        return self._read_resized(im_ann), res.copy(), img_info, np.array([id_])
+
+    def __getitem__(self, index):
+        img, target, img_info, img_id = self.pull_item(index)
+        if self.preproc is not None:
+            img, target = self.preproc(img, target, self.img_size)
+        return img, target, img_info, img_id

@@ -79,9 +79,10 @@ def resize_linear_u8(src: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     then cv2's vectorised vertical pass (two 16x16 -> high-16 products,
     summed, rounded off by 2 bits). cv2's scalar tail rounds once instead,
     so a few values differ by one grey level."""
-    x0, x1, wx0, wx1 = _linear_taps(src.shape[1], out_w)
-    y0, y1, wy0, wy1 = _linear_taps(src.shape[0], out_h)
-    s = src.astype(np.int64)
+    # int32 holds every intermediate: rows <= 255 * 2048 >> 4, times <= 2048
+    x0, x1, wx0, wx1 = (a.astype(np.int32) for a in _linear_taps(src.shape[1], out_w))
+    y0, y1, wy0, wy1 = (a.astype(np.int32) for a in _linear_taps(src.shape[0], out_h))
+    s = src.astype(np.int32)
     rows = (s[:, x0] * wx0[None, :, None] + s[:, x1] * wx1[None, :, None]) >> 4
     acc = ((rows[y0] * wy0[:, None, None]) >> 16) + ((rows[y1] * wy1[:, None, None]) >> 16)
     return np.clip((acc + 2) >> 2, 0, 255).astype(np.uint8)

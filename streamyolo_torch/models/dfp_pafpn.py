@@ -3,10 +3,9 @@
 Counterpart of ``streamyolo_tpu/models/dfp_pafpn.py``:
 
   * ``off_pipe``: a 6-channel (current ++ support) input runs the shared
-    backbone+PAFPN on both frames and fuses each level with the ``jian``
-    half-channel 1x1 convs, ``cat(jian(cur), jian(sup)) + cur``; a 3-channel
-    input is self-duplicated. In eval both frames go through one batched
-    pass (BN uses running statistics, so the math is that of two passes).
+    backbone+PAFPN on both frames, one pass each, and fuses each level with
+    the ``jian`` half-channel 1x1 convs, ``cat(jian(cur), jian(sup)) + cur``;
+    a 3-channel input is self-duplicated.
   * ``on_pipe``: the backbone runs ONCE on the current frame and fuses with
     the carried previous-frame outputs (the DFP buffer); ``buffer=None`` is
     the star node (self-fuse). Returns ``(outputs, cur)``; ``cur`` is the
@@ -14,8 +13,16 @@ Counterpart of ``streamyolo_tpu/models/dfp_pafpn.py``:
     row: a True row fuses with its own current features (a restarted
     stream's star), the other rows with the buffer, in one batched pass
     (``stream/online.py::MultiStreamDetector``).
+  * ``seq`` (sequential-dedup offline eval, ``eval/seq_forward.py``): ONE
+    pafpn pass over a batch of consecutive current frames; sample i's
+    support features are the batch's own outputs at row
+    ``i - support_shift[i]``, extended in front by a 2-frame carry of the
+    previous batch's last outputs. Returns ``(outputs, carry)``. Eval only:
+    BN uses running statistics, so the outputs are those of ``off_pipe``'s
+    two passes at half the backbone work.
 
-The ``seq`` mode is not here yet. Tensors are NCHW.
+Tensors are NCHW (``channels_last`` on the card; the ``seq`` gather and
+concatenations keep that layout).
 """
 
 from __future__ import annotations
@@ -85,22 +92,37 @@ class DFPPAFPN(nn.Module):
             torch.cat([j(c), j(s)], dim=1) + c for j, c, s in zip(jians, cur, sup))
 
     def forward(self, x: torch.Tensor, buffer: Optional[Buffer] = None,
-                mode: str = "off_pipe", star_mask: Optional[torch.Tensor] = None):
+                mode: str = "off_pipe", star_mask: Optional[torch.Tensor] = None,
+                support_shift: Optional[torch.Tensor] = None):
+        if mode == "seq":
+            if self.training or support_shift is None:
+                raise ValueError("mode 'seq' is eval-only and needs support_shift")
+            cur = self.pafpn(x)
+            if buffer is None:
+                # first batch: frame 0 twice as a placeholder (real datasets
+                # give their first rows a shift <= the row index)
+                carry = tuple(torch.cat([c[:1], c[:1]], dim=0) for c in cur)
+            else:
+                carry = tuple(b.to(c.dtype) for b, c in zip(buffer, cur))
+            ext = tuple(torch.cat([k, c], dim=0) for k, c in zip(carry, cur))
+            rows = torch.arange(x.shape[0], device=x.device) + 2 - support_shift
+            sup = tuple(e[rows] for e in ext)
+            return self._dfp_fuse(cur, sup), tuple(e[-2:] for e in ext)
         if mode == "off_pipe":
             if x.shape[1] == 3:
                 cur_img = sup_img = x
             else:
-                cur_img, sup_img = x[:, :3], x[:, 3:]
-            if not self.training:
-                b = cur_img.shape[0]
-                both = self.pafpn(torch.cat([cur_img, sup_img], dim=0))
-                cur = tuple(o[:b] for o in both)
-                sup = tuple(o[b:] for o in both)
-            else:
-                # two passes: a joint batch would mix the BN batch statistics
-                cur = self.pafpn(cur_img)
-                sup = self.pafpn(sup_img)
-            return self._dfp_fuse(cur, sup)
+                # each half dense in the input's layout, as a 3-channel input is
+                fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                       else torch.contiguous_format)
+                cur_img, sup_img = (h.contiguous(memory_format=fmt) for h in (x[:, :3], x[:, 3:]))
+            # two passes, as the torch reference runs them: in training a
+            # joint batch would mix the BN batch statistics, and in eval the
+            # pafpn then runs at the batch of the ``seq`` forward, so cuDNN
+            # picks the same kernels for both and the dedup eval's
+            # first-batch guard compares like with like (the JAX package
+            # joins the two halves into one pass for the TPU's matrix unit)
+            return self._dfp_fuse(self.pafpn(cur_img), self.pafpn(sup_img))
         if mode == "on_pipe":
             cur = self.pafpn(x)
             sup = cur if buffer is None else tuple(buffer)
@@ -108,4 +130,4 @@ class DFPPAFPN(nn.Module):
                 m = star_mask.reshape(-1, 1, 1, 1)
                 sup = tuple(torch.where(m, c, s.to(c.dtype)) for c, s in zip(cur, sup))
             return self._dfp_fuse(cur, sup), cur
-        raise ValueError(f"mode must be 'off_pipe' or 'on_pipe', got {mode!r}")
+        raise ValueError(f"mode must be 'off_pipe', 'on_pipe' or 'seq', got {mode!r}")

@@ -34,13 +34,21 @@ class StreamYOLO(nn.Module):
         return next(self.parameters()).dtype
 
     def forward(self, x: torch.Tensor, buffer: Optional[Buffer] = None,
-                mode: str = "off_pipe", star_mask: Optional[torch.Tensor] = None):
+                mode: str = "off_pipe", star_mask: Optional[torch.Tensor] = None,
+                support_shift: Optional[torch.Tensor] = None):
         """``off_pipe``: NHWC 6- (or 3-) channel input -> decoded
         ``[B, N, 5+C]`` (raw per-level maps in training).
         ``on_pipe``: NHWC 3-channel frame + DFP buffer (``None`` = star) ->
         ``(decoded, new_buffer)``; the buffer is a tuple of NCHW maps, and a
-        ``[B]`` bool ``star_mask`` re-stars the True rows."""
+        ``[B]`` bool ``star_mask`` re-stars the True rows.
+        ``seq``: NHWC 3-channel consecutive frames + the 2-frame carry
+        (``None`` on the first batch) + ``[B]`` int ``support_shift`` ->
+        ``(decoded, new_carry)``."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
+        if mode == "seq":
+            fpn_outs, carry = self.backbone(
+                x, buffer=buffer, mode="seq", support_shift=support_shift)
+            return eval_outputs(self.head(fpn_outs), self.head.strides), carry
         if mode == "off_pipe":
             outputs = self.head(self.backbone(x, mode="off_pipe"))
             if self.training:
@@ -51,7 +59,7 @@ class StreamYOLO(nn.Module):
                 x, buffer=buffer, mode="on_pipe", star_mask=star_mask)
             outputs = self.head(fpn_outs)
             return eval_outputs(outputs, self.head.strides), new_buffer
-        raise ValueError(f"mode must be 'off_pipe' or 'on_pipe', got {mode!r}")
+        raise ValueError(f"mode must be 'off_pipe', 'on_pipe' or 'seq', got {mode!r}")
 
 
 YOLOX = StreamYOLO

@@ -415,17 +415,14 @@ def print_stats(arr, name: str = "", fmt: str = "{:.4g}", cvt=lambda x: x):
 
 def imread_loader(db, data_root: str) -> Callable[[dict], np.ndarray]:
     """``load_frame`` for an Argoverse-HD layout: reads
-    ``data_root/<seq_dir>/<name>`` of an image dict with cv2."""
-    import cv2
+    ``data_root/<seq_dir>/<name>`` of an image dict with cv2 (a clear
+    ImportError at the first read where cv2 is absent)."""
+    from streamyolo_torch.data.datasets import imread
 
     seq_dirs = db.dataset["seq_dirs"]
 
     def load(img: dict) -> np.ndarray:
-        path = os.path.join(data_root, seq_dirs[img["sid"]], img["name"])
-        frame = cv2.imread(path)
-        if frame is None:
-            raise OSError(f"cannot read {path}")
-        return frame
+        return imread(os.path.join(data_root, seq_dirs[img["sid"]], img["name"]))
 
     return load
 

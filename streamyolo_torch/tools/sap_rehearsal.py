@@ -25,11 +25,13 @@ without a live 30 fps feed. Stages (each a function below, which
   5. scoring: ``streaming_eval`` (pairing + native COCOeval), one table row
      on stdout and ``<out>/rehearsal_summary.json``.
 
-The model is StreamYOLO ``--size s|m|l`` with the TAL head and 8 classes:
-``--weights`` (``.pth`` or ``.safetensors`` with torch names) or random
-weights from ``--seed``. ``--perfect-detector`` replaces the model with an
-oracle that returns the input frame's annotations, which isolates the cost
-of latency and motion alone (no model, no card).
+The model is StreamYOLO ``--size s|m|l`` (the shipped ONE config of that
+size), or the config of ``-f`` with ``key value`` overrides after the other
+flags (as the JAX tool's ``-f`` and ``opts``): ``--weights`` (``.pth`` or
+``.safetensors`` with torch names) or random weights from ``--seed``.
+``--perfect-detector`` replaces the model with an oracle that returns the
+input frame's annotations, which isolates the cost of latency and motion
+alone (no model, no card).
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ import numpy as np
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser("streamyolo_torch streaming sAP rehearsal")
     p.add_argument("--size", choices=["s", "m", "l"], default="l", help="StreamYOLO size")
+    p.add_argument("-f", "--exp_file", type=str, default=None,
+                   help="config (a port config name or a path into cfgs/); "
+                        "replaces --size")
     p.add_argument("--weights", "-c", type=str, default=None,
                    help=".pth or .safetensors state dict; omitted = random "
                         "weights from --seed (fine with --gt oracle)")
@@ -92,26 +97,34 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--perfect-detector", action="store_true", default=False,
                    help="an oracle returning the input frame's annotations "
                         "replaces the model; implies --gt annotations")
+    p.add_argument("opts", default=None, nargs=argparse.REMAINDER,
+                   help="'key value' overrides of the config")
     return p.parse_args(argv)
 
 
-def build_detector(size: str, *, input_size: Tuple[int, int], weights: Optional[str] = None,
-                   seed: int = 0, fp32: bool = False, device: str = "cuda", **det_kw):
-    """``CUDAStreamDetector`` over StreamYOLO-``size`` (TAL head, 8 classes),
-    bf16 modules unless ``fp32``, with ``weights`` or random weights drawn
-    from ``seed``. ``det_kw`` goes to the detector."""
-    import torch
+# the shipped ONE config of each --size
+SIZE_CONFIGS = {"s": "s_s50_onex_dfp_tal_flip", "m": "m_s50_onex_dfp_tal_flip",
+                "l": "l_s50_onex_dfp_tal_filp"}
 
-    from streamyolo_torch.models import build_streamyolo
+
+def build_detector(size: str, *, input_size: Tuple[int, int], weights: Optional[str] = None,
+                   seed: int = 0, fp32: bool = False, device: str = "cuda", exp=None,
+                   **det_kw):
+    """``CUDAStreamDetector`` over the model of ``exp`` (by default the
+    shipped ONE config of ``size``: StreamYOLO with the TAL head, 8
+    classes), bf16 modules unless ``fp32``, with ``weights`` or random
+    weights drawn from ``seed``. ``det_kw`` goes to the detector."""
+    from streamyolo_torch.exp import get_exp
     from streamyolo_torch.stream import CUDAStreamDetector
     from streamyolo_torch.utils.weights import load_state_dict_file
 
-    dtype = torch.float32 if fp32 else torch.bfloat16
-    gen = None if weights else torch.Generator().manual_seed(seed)
-    model = build_streamyolo(size, 8, dtype=dtype, device=device, generator=gen)
-    if weights:
-        model.load_state_dict(load_state_dict_file(weights), strict=True)
-    return CUDAStreamDetector(model, input_size=input_size, num_classes=8,
+    exp = exp or get_exp(exp_name=SIZE_CONFIGS[size])
+    exp.compute_dtype = "float32" if fp32 else "bfloat16"
+    exp.seed = seed
+    model = exp.get_model(device)
+    model.load_state_dict(load_state_dict_file(weights) if weights else exp.init_model(),
+                          strict=True)
+    return CUDAStreamDetector(model, input_size=input_size, num_classes=exp.num_classes,
                               use_bf16=not fp32, device=device, **det_kw)
 
 
@@ -277,6 +290,7 @@ def summarize(config: str, gt: str, fps: float, runtime_dist, n_samples: int,
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     from streamyolo_torch.data import COCO, SyntheticArgoverse, make_synthetic_argoverse
+    from streamyolo_torch.exp import get_exp
     from streamyolo_torch.stream import (
         SimClock,
         dist_from_zoo,
@@ -286,7 +300,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from streamyolo_torch.stream.online import imread_loader
 
     os.makedirs(args.out_dir, exist_ok=True)
-    config = f"streamyolo_{args.size}"
+    exp = get_exp(args.exp_file) if args.exp_file else None
+    if exp is not None:
+        exp.merge(args.opts)
+    elif args.opts:
+        raise SystemExit(f"config overrides {args.opts} need -f")
+    config = exp.exp_name if exp is not None else f"streamyolo_{args.size}"
 
     # ---- 1. dataset
     load_frame = None
@@ -323,7 +342,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         input_size = (int(img0["height"] * args.in_scale), int(img0["width"] * args.in_scale))
         detector = build_detector(
             args.size, input_size=input_size, weights=args.weights, seed=args.seed,
-            fp32=args.fp32, device=args.device, in_scale=args.in_scale,
+            fp32=args.fp32, device=args.device, exp=exp, in_scale=args.in_scale,
             conf_thre=args.conf, nms_thre=args.nms, device_preproc=args.device_preproc)
         detector.warmup(5)
 

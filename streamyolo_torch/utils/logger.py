@@ -1,9 +1,10 @@
 """Logging setup (stdlib logging), the port's own copy of
-``streamyolo_tpu/utils/logger.py::get_logger``."""
+``streamyolo_tpu/utils/logger.py``: ``get_logger`` and ``setup_logger``."""
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from typing import Optional
 
@@ -19,4 +20,16 @@ def get_logger(name: Optional[str] = None) -> logging.Logger:
         handler.setFormatter(logging.Formatter(_FORMAT))
         root.addHandler(handler)
         root.setLevel(logging.INFO)
+    return logger
+
+
+def setup_logger(save_dir: str, filename: str = "log.txt", mode: str = "a") -> logging.Logger:
+    """``get_logger()`` that also appends to ``save_dir/filename``."""
+    logger = get_logger()
+    path = os.path.abspath(os.path.join(save_dir, filename))
+    root = logging.getLogger(_LOGGER_NAME)
+    if not any(getattr(h, "baseFilename", None) == path for h in root.handlers):
+        handler = logging.FileHandler(path, mode=mode)
+        handler.setFormatter(logging.Formatter(_FORMAT))
+        root.addHandler(handler)
     return logger

@@ -14,7 +14,9 @@ The port's modules use the yolox ``state_dict`` names
     ``running_mean``/``running_var``.
 
 JAX exports no ``num_batches_tracked``; the loaders here fill it (0) for
-every BatchNorm so strict loading works.
+every BatchNorm so strict loading works. ``merge_state_dict`` puts a loaded
+checkpoint over a model's own state dict, strictly (eval) or tolerating
+missing and mismatched entries (fine-tuning).
 """
 
 from __future__ import annotations
@@ -105,3 +107,30 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
         state_dict = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     return with_num_batches_tracked(
         {k: torch.as_tensor(v) for k, v in state_dict.items()})
+
+
+def merge_state_dict(base: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor],
+                     strict: bool = True) -> Dict[str, torch.Tensor]:
+    """``base`` with its entries replaced by ``loaded``'s. ``strict``: the
+    two must hold the same keys with the same shapes, else ``KeyError`` /
+    ``ValueError`` naming them. Not strict: entries missing from
+    ``loaded`` or of another shape keep ``base``'s values and are logged."""
+    missing = sorted(set(base) - set(loaded))
+    unexpected = sorted(set(loaded) - set(base))
+    mismatched = {k for k in set(base) & set(loaded)
+                  if tuple(base[k].shape) != tuple(loaded[k].shape)}
+    if strict and (missing or unexpected):
+        raise KeyError(f"checkpoint keys differ from the model's: missing "
+                       f"{missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} "
+                       f"({len(unexpected)})")
+    if strict and mismatched:
+        raise ValueError(f"checkpoint shapes differ from the model's at "
+                         f"{sorted(mismatched)[:5]} ({len(mismatched)})")
+    if missing or mismatched:
+        from streamyolo_torch.utils.logger import get_logger
+
+        get_logger().warning("%d missing and %d mismatched checkpoint entries keep "
+                             "their init values", len(missing), len(mismatched))
+    out = dict(base)
+    out.update({k: loaded[k] for k in base if k in loaded and k not in mismatched})
+    return out

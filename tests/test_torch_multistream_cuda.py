@@ -16,25 +16,13 @@ import torch
 
 from streamyolo_torch.data.coco import COCO
 from streamyolo_torch.eval import COCOeval, COCOeval_opt
-from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead, init_weights
 from streamyolo_torch.ops.nms import postprocess_fixed
 from streamyolo_torch.ops.nms_cuda import nms_keep
 from streamyolo_torch.stream import MultiStreamDetector
 
-from .torch_port_helpers import require_cuda
+from .torch_port_helpers import require_cuda, tiny_model
 
 INPUT = (64, 96)
-
-
-def tiny_model(dtype):
-    """Depth 0.33, width 0.25, seeded weights, obj/cls prediction biases 0
-    (so NMS sees candidates), on the card."""
-    model = init_weights(StreamYOLO(DFPPAFPN(0.33, 0.25), TALHead(num_classes=8, width=0.25)),
-                         torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        for m in list(model.head.obj_preds) + list(model.head.cls_preds):
-            m.bias.zero_()
-    return model.to(device="cuda", dtype=dtype).eval()
 
 
 @pytest.mark.cuda

@@ -1,0 +1,33 @@
+"""The port imports neither JAX nor the JAX package: a fresh interpreter in
+which ``import jax``, ``import flax`` and ``import streamyolo_tpu`` fail
+imports every module of ``streamyolo_torch`` and ``chip_smoke.py``."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = """
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "streamyolo_tpu"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import streamyolo_torch
+names = sorted(m.name for m in pkgutil.walk_packages(streamyolo_torch.__path__, "streamyolo_torch."))
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(n for n in sys.modules
+                if n.split(".")[0] in ("jax", "jaxlib", "flax", "streamyolo_tpu")
+                and sys.modules[n] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) > 40  # every module was walked

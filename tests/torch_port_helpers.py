@@ -1,6 +1,7 @@
 """Shared pieces of the ``test_torch_*.py`` parity tests: JAX variables with
 non-trivial BatchNorm statistics, their conversion into the PyTorch port,
-and the guard for tests that need a CUDA card."""
+the textured Argoverse-HD fixture of the eval tests, and the guard for tests
+that need a CUDA card."""
 
 from __future__ import annotations
 
@@ -60,7 +61,35 @@ def nhwc_to_nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
 
+def tiny_model(dtype):
+    """Depth 0.33, width 0.25, seeded weights, obj/cls prediction biases 0
+    (so NMS sees candidates), on the card."""
+    from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead, init_weights
+
+    model = init_weights(StreamYOLO(DFPPAFPN(0.33, 0.25), TALHead(num_classes=8, width=0.25)),
+                         torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in list(model.head.obj_preds) + list(model.head.cls_preds):
+            m.bias.zero_()
+    return model.to(device="cuda", dtype=dtype).eval()
+
+
 def require_cuda():
     """Skip the calling test unless a CUDA card and nvcc are present."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card: pytest -m cuda)")
+
+
+def write_textured_argoverse(root, seq_lens):
+    """``tests/conftest.py::write_fake_argoverse`` (raw 60x96 frames) with the
+    flat frames replaced by seeded noise JPEGs: flat frames make every
+    spatial location score alike, which leaves NMS to tie-breaks."""
+    import cv2
+
+    from .conftest import FAKE_H, FAKE_W, write_fake_argoverse
+
+    write_fake_argoverse(root, seq_lens=seq_lens)
+    rng = np.random.RandomState(sum(seq_lens))
+    for path in sorted((root / "Argoverse-1.1" / "tracking").rglob("*.jpg")):
+        cv2.imwrite(str(path), rng.randint(0, 256, (FAKE_H, FAKE_W, 3), np.uint8))
+    return str(root)
