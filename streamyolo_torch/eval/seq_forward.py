@@ -17,6 +17,7 @@ one process).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -59,6 +60,21 @@ def support_shifts(dataset) -> np.ndarray:
     return shifts
 
 
+@contextlib.contextmanager
+def _per_image_convolution(device: torch.device, on: bool):
+    """cuDNN off on a card while ``on``: PyTorch's own convolution, one GEMM
+    per image of the batch."""
+    if not on or device.type != "cuda":
+        yield
+        return
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
 class SequentialDedupForward:
     """``forward_fn`` for the evaluators: it advertises ``needs_ids``, so the
     evaluator passes the batch's image ids; padded tail rows self-fuse and
@@ -68,7 +84,16 @@ class SequentialDedupForward:
     first-batch guard: the first batch also runs dual-frame, and the
     decoded predictions must agree within ``verify_tol`` = (box pixels,
     scores). The first batch holds the boundary rows (fid 0 self-support),
-    so a wiring fault (wrong shifts, a stale carry) shows there."""
+    so a wiring fault (wrong shifts, a stale carry) shows there.
+
+    On a card both forwards of the guarded batch run with cuDNN off.
+    The dual-frame forward computes a support frame at another batch row
+    than the dedup forward does, and cuDNN's split-K kernels round an image
+    by its row (``tools/row_invariance.py``), which a deep trunk carries
+    past the bf16 bound. cuDNN's heuristic choice takes such kernels, and
+    its timed choice (``cudnn.benchmark``) takes them in some processes.
+    PyTorch's own convolution runs one GEMM per image, so an image rounds
+    alike at every row and in every batch. The later batches run cuDNN."""
 
     needs_ids = True
 
@@ -109,12 +134,14 @@ class SequentialDedupForward:
         # the device: a host copy of the strided 3-channel slice costs more
         # than the extra bytes
         frames = torch.from_numpy(images).to(self._device)[..., :3].contiguous()
-        preds, self._carry = self._model(
-            frames, buffer=self._carry, mode="seq",
-            support_shift=torch.from_numpy(shifts).to(self._device))
-        if self._verify_fn is not None:
-            self._assert_first_batch_parity(images, preds, n_real)
-            self._verify_fn = None
+        guard = self._verify_fn is not None
+        with _per_image_convolution(self._device, guard):
+            preds, self._carry = self._model(
+                frames, buffer=self._carry, mode="seq",
+                support_shift=torch.from_numpy(shifts).to(self._device))
+            if guard:
+                self._assert_first_batch_parity(images, preds, n_real)
+                self._verify_fn = None
         return preds
 
     def _assert_first_batch_parity(self, images, preds, n_real: int):

@@ -28,6 +28,9 @@ SHIPPED_CONFIGS = (
     "m_s50_onex_dfp_tal_flip",
     "s_s50_onex_dfp_tal_flip",
 )
+# the shipped ONE config of each model size
+SIZE_CONFIGS = {"s": "s_s50_onex_dfp_tal_flip", "m": "m_s50_onex_dfp_tal_flip",
+                "l": "l_s50_onex_dfp_tal_filp"}
 
 
 class BaseExp:

@@ -121,13 +121,7 @@ class StreamExp(BaseExp):
     def dedup_tolerance(self):
         """(box pixels, scores) of the dedup forward's first-batch guard: the
         JAX package's, (1e-4, 1e-4) for float32 and (1.0, 5e-3) for bf16
-        modules. The dual-frame forward runs the pafpn at the dedup
-        forward's batch (``models/dfp_pafpn.py``), so in float32 on a card
-        (TF32 off) the two agree bit for bit. In bf16, cuDNN's default
-        heuristics pick kernels whose rounding depends on an image's row in
-        the batch, which a deep trunk can carry past the bound; the kernels
-        ``torch.backends.cudnn.benchmark`` picks (as ``tools/eval.py`` sets
-        it) do not (``tools/row_invariance.py`` measures both)."""
+        modules."""
         return (1.0, 5e-3) if self.compute_dtype != "float32" else (1e-4, 1e-4)
 
     def get_dedup_forward_fn(self, model, dataset, verify_first_batch: bool = True):
@@ -135,7 +129,8 @@ class StreamExp(BaseExp):
         backbone pass per unique frame; needs a sequential, unsharded val
         traversal (ONE/TWO pairing, one process). ``verify_first_batch``
         (on by default: dedup is the default eval path) arms the first-batch
-        guard against the dual-frame forward of the same model."""
+        guard against the dual-frame forward of the same model (on a card
+        its batch runs with cuDNN off, ``SequentialDedupForward``)."""
         from streamyolo_torch.eval.seq_forward import SequentialDedupForward
 
         self._check_dtype(model)

@@ -3,9 +3,10 @@
 Counterpart of ``streamyolo_tpu/models/dfp_pafpn.py``:
 
   * ``off_pipe``: a 6-channel (current ++ support) input runs the shared
-    backbone+PAFPN on both frames, one pass each, and fuses each level with
-    the ``jian`` half-channel 1x1 convs, ``cat(jian(cur), jian(sup)) + cur``;
-    a 3-channel input is self-duplicated.
+    backbone+PAFPN on both frames and fuses each level with the ``jian``
+    half-channel 1x1 convs, ``cat(jian(cur), jian(sup)) + cur``; a 3-channel
+    input is self-duplicated. In eval both frames go through one batched
+    pass, and a 3-channel input through one pass of its own.
   * ``on_pipe``: the backbone runs ONCE on the current frame and fuses with
     the carried previous-frame outputs (the DFP buffer); ``buffer=None`` is
     the star node (self-fuse). Returns ``(outputs, cur)``; ``cur`` is the
@@ -18,8 +19,8 @@ Counterpart of ``streamyolo_tpu/models/dfp_pafpn.py``:
     support features are the batch's own outputs at row
     ``i - support_shift[i]``, extended in front by a 2-frame carry of the
     previous batch's last outputs. Returns ``(outputs, carry)``. Eval only:
-    BN uses running statistics, so the outputs are those of ``off_pipe``'s
-    two passes at half the backbone work.
+    BN uses running statistics, so the outputs are those of ``off_pipe`` at
+    half the backbone work.
 
 Tensors are NCHW (``channels_last`` on the card; the ``seq`` gather and
 concatenations keep that layout).
@@ -110,18 +111,19 @@ class DFPPAFPN(nn.Module):
             return self._dfp_fuse(cur, sup), tuple(e[-2:] for e in ext)
         if mode == "off_pipe":
             if x.shape[1] == 3:
+                if not self.training:  # BN uses running statistics: one pass
+                    cur = self.pafpn(x)
+                    return self._dfp_fuse(cur, cur)
                 cur_img = sup_img = x
             else:
-                # each half dense in the input's layout, as a 3-channel input is
-                fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
-                       else torch.contiguous_format)
-                cur_img, sup_img = (h.contiguous(memory_format=fmt) for h in (x[:, :3], x[:, 3:]))
-            # two passes, as the torch reference runs them: in training a
-            # joint batch would mix the BN batch statistics, and in eval the
-            # pafpn then runs at the batch of the ``seq`` forward, so cuDNN
-            # picks the same kernels for both and the dedup eval's
-            # first-batch guard compares like with like (the JAX package
-            # joins the two halves into one pass for the TPU's matrix unit)
+                cur_img, sup_img = x[:, :3], x[:, 3:]
+            if not self.training:
+                # one pass over both halves: BN uses running statistics, so
+                # the math is that of two passes, at one launch sequence
+                b = cur_img.shape[0]
+                both = self.pafpn(torch.cat([cur_img, sup_img], dim=0))
+                return self._dfp_fuse(tuple(o[:b] for o in both), tuple(o[b:] for o in both))
+            # two passes: a joint batch would mix the BN batch statistics
             return self._dfp_fuse(self.pafpn(cur_img), self.pafpn(sup_img))
         if mode == "on_pipe":
             cur = self.pafpn(x)

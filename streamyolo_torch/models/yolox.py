@@ -16,11 +16,8 @@ import torch
 from torch import nn
 
 from streamyolo_torch.models.dfp_pafpn import DFPPAFPN, Buffer
-from streamyolo_torch.models.heads import TALHead, YOLOXHead, eval_outputs
+from streamyolo_torch.models.heads import YOLOXHead, eval_outputs
 from streamyolo_torch.utils.device import resolve_device
-
-# depth, width of the shipped configs (cfgs/*.py)
-WIDTHS = {"s": (0.33, 0.50), "m": (0.67, 0.75), "l": (1.0, 1.0)}
 
 
 class StreamYOLO(nn.Module):
@@ -93,17 +90,16 @@ def build_streamyolo(
     device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ) -> StreamYOLO:
-    """StreamYOLO-s/m/l with the TAL head, as the shipped streaming configs
-    build it (``get_model`` of ``exp/stream_exp.py``), in eval mode, with
-    modules cast to ``dtype``.
+    """StreamYOLO-s/m/l as the shipped ONE config of that size builds it
+    (``exp.SIZE_CONFIGS``, ``StreamExp.get_model``: the TAL head), in eval
+    mode, with modules cast to ``dtype``.
     With ``generator`` (a CPU generator) the weights are drawn from it
     (``init_weights``) before the model moves to ``device``."""
-    dev = resolve_device(device)
-    depth, width = WIDTHS[size]
-    model = StreamYOLO(
-        backbone=DFPPAFPN(depth, width),
-        head=TALHead(num_classes=num_classes, width=width),
-    )
+    from streamyolo_torch.exp import SIZE_CONFIGS, get_exp
+
+    exp = get_exp(exp_name=SIZE_CONFIGS[size])
+    exp.num_classes = num_classes
+    model = exp.get_model("cpu")
     if generator is not None:
         init_weights(model, generator)
-    return model.to(device=dev, dtype=dtype).eval()
+    return model.to(device=resolve_device(device), dtype=dtype)

@@ -17,7 +17,12 @@ a run of calls back to back divided by the count; ``floor`` is a one-element
 torch kernel timed both ways. The step is ``chip_smoke.py``'s: StreamYOLO-l
 at 600x960 bf16, random weights from seed 0, host path and
 ``device_preproc``, wall clock of 50 steady ``CUDAStreamDetector`` calls
-(median). Prints one JSON line with the card's name and power limit.
+(median). Last, the eval's dual-frame (``off_pipe``) forward of that model
+as ``tools/eval.py`` runs it (``cudnn.benchmark`` on, channels_last), on
+random uint8 batches of B = 8 and 64, 6-channel (ONE/TWO ``--no-dedup``, the
+dedup guard) and 3-channel (STILL): ms per image, CUDA events around one
+synchronised forward, median of 10. Prints one JSON line with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -95,13 +100,26 @@ def main() -> int:
             det(frames[i % len(frames)], preprocessed=name == "host")
             wall.append((time.perf_counter() - t) * 1e3)
         step[name + "_wall_ms"] = statistics.median(wall[1:])  # steady steps
+    # the step's convolutions above keep their choices; the eval's shapes
+    # are new to this process
+    torch.backends.cudnn.benchmark = True
+    model = model.to(memory_format=torch.channels_last)
+    eval_forward = {}
+    for b in (8, 64):
+        for c in (6, 3):
+            x = torch.from_numpy(rng.randint(0, 256, (b, *INPUT, c), np.uint8)).to(dev)
+            with torch.inference_mode():
+                ms = time_cuda(lambda: model(x, mode="off_pipe"), 10)
+            eval_forward[f"B{b}_C{c}_ms_per_image"] = ms / b
+            del x
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     ptxas = {n: [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
              for n, r in report.items()}
     print(json.dumps({"root": args.root, "package": streamyolo_torch.__file__,
-                      "nvidia_smi": smi, "ms": times, "step": step, "ptxas": ptxas}),
+                      "nvidia_smi": smi, "ms": times, "step": step,
+                      "eval_forward": eval_forward, "ptxas": ptxas}),
           flush=True)
     return 0
 

@@ -165,10 +165,7 @@ def main(argv: Optional[Sequence[str]] = None):
         state_dict = fuse_state_dict(state_dict)
     import torch
 
-    # cuDNN's timed algorithm choice, as the reference's tools/eval.py sets
-    # it: its bf16 kernels here round alike wherever an image sits in the
-    # batch, which the dedup forward's first-batch guard relies on
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = True  # as the reference's tools/eval.py
     if exp.compute_dtype == "float32":  # float32 means float32, not TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -102,11 +102,6 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return p.parse_args(argv)
 
 
-# the shipped ONE config of each --size
-SIZE_CONFIGS = {"s": "s_s50_onex_dfp_tal_flip", "m": "m_s50_onex_dfp_tal_flip",
-                "l": "l_s50_onex_dfp_tal_filp"}
-
-
 def build_detector(size: str, *, input_size: Tuple[int, int], weights: Optional[str] = None,
                    seed: int = 0, fp32: bool = False, device: str = "cuda", exp=None,
                    **det_kw):
@@ -114,7 +109,7 @@ def build_detector(size: str, *, input_size: Tuple[int, int], weights: Optional[
     shipped ONE config of ``size``: StreamYOLO with the TAL head, 8
     classes), bf16 modules unless ``fp32``, with ``weights`` or random
     weights drawn from ``seed``. ``det_kw`` goes to the detector."""
-    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.exp import SIZE_CONFIGS, get_exp
     from streamyolo_torch.stream import CUDAStreamDetector
     from streamyolo_torch.utils.weights import load_state_dict_file
 
