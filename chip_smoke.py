@@ -22,7 +22,13 @@ pseudo-streaming evaluation (``streamyolo_torch/tools/eval.py``'s path: the
 port's ``Exp``, the val dataset and loader, the sequential-dedup forward with
 its first-batch guard and the dual-frame forward, kernel B1 at K = 1000, the
 ONEX evaluator, native COCOeval) on 2 in-memory synthetic sequences of 11 raw
-1200x1920 frames in batches of 8. Each phase prints
+1200x1920 frames in batches of 8. Last, it trains StreamYOLO-l at full width
+through ``streamyolo_torch/tools/train.py``'s entry (bf16 autocast, batch 8,
+2 epochs on 2 in-memory synthetic sequences of 24 raw 1200x1920 frames,
+multiscale, the EMA eval after each epoch with kernel B1, checkpoints,
+``--resume``, the eval CLI on the checkpoint), holds one float32 train step
+of the card against the CPU, and checks the learning signal of a fixed-batch
+overfit. Each phase prints
 one JSON line; the line before the last lists the kernels, with their
 launches on every path, and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
@@ -56,6 +62,10 @@ PGT_SCORE_PERCENTILE = 90
 EVAL_CONFIG, EVAL_SEQS, EVAL_FRAMES, EVAL_BATCH, EVAL_BIG_BATCH = (
     "l_s50_onex_dfp_tal_filp", 2, 11, 8, 64)
 EVAL_TOPK = 1000  # postprocess_fixed's default, the evaluators' K
+TRAIN_SEQS, TRAIN_FRAMES, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_WORKERS = 2, 24, 8, 2, 4
+GRAD_INPUT, GRAD_BATCH = (192, 320), 2  # the float32 card-vs-CPU train step
+TRAIN_TEST_CONF = 1e-4
+OVERFIT_STEPS, OVERFIT_LR = 60, 5e-3  # the JAX package's overfit recipe
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
@@ -643,6 +653,289 @@ def phase_offline_eval(out_dir: Path, floor: dict) -> dict:
     return {"launches": launches, "times": times}
 
 
+class SplitFrames:
+    """``load_frame`` over in-memory synthetic splits: an image dict's
+    ``split`` key names the ``SyntheticArgoverse`` that renders it (a class,
+    so that spawned loader workers can unpickle it)."""
+
+    def __init__(self, **synths):
+        self.synths = synths
+
+    def __call__(self, img):
+        return self.synths[img["split"]].frame(img)
+
+
+def train_init(exp):
+    """The training run's start: the config's seeded float32 state dict with
+    the cls prediction biases 0, so the eval scores (obj ~0.01 x cls ~0.5)
+    clear its conf. The obj biases keep their prior: at 0 every anchor's
+    objectness loss is ~50x larger, and its gradient through the shared
+    head dominates a short run."""
+    import torch
+
+    state = exp.init_model()
+    for k in state:
+        if k.startswith("head.cls_preds.") and k.endswith(".bias"):
+            state[k] = torch.zeros_like(state[k])
+    return state
+
+
+def synthetic_labels(rng, b, hw, m=10):
+    """[b, m, 5] (cls, cx, cy, w, h) current and support labels, 3..m boxes."""
+    labels = np.zeros((b, m, 5), np.float32)
+    for i in range(b):
+        k = int(rng.randint(3, m + 1))
+        labels[i, :k, 0] = rng.randint(0, NCLS, k)
+        labels[i, :k, 1] = rng.uniform(0.1, 0.9, k) * hw[1]
+        labels[i, :k, 2] = rng.uniform(0.1, 0.9, k) * hw[0]
+        labels[i, :k, 3:5] = rng.uniform(0.05, 0.3, (k, 2)) * hw[0]
+    support = labels.copy()
+    support[..., 1:3] += rng.normal(0, 2, support[..., 1:3].shape).astype(np.float32)
+    support[labels.sum(-1) == 0] = 0.0
+    return labels, support
+
+
+def overfit_ratio(model, batch, fp16: bool) -> dict:
+    """The JAX package's overfit recipe (tests/test_train.py): one fixed
+    batch, ``OVERFIT_STEPS`` SGD steps at a constant LR; the first and last
+    total loss."""
+    from streamyolo_torch.train import build_lr_schedule, create_train_state, make_train_step
+
+    state = create_train_state(model.train())
+    step = make_train_step(NCLS, build_lr_schedule("constant", OVERFIT_LR, 10, 100), fp16=fp16)
+    losses = [float(step(state, batch)["total_loss"]) for _ in range(OVERFIT_STEPS)]
+    finite = [v for v in losses if np.isfinite(v)]
+    return {"first": losses[0], "last": losses[-1], "ratio": losses[-1] / losses[0],
+            "min": min(finite), "finite_steps": len(finite)}
+
+
+def phase_train(out_dir: Path) -> dict:
+    """Training through ``streamyolo_torch.tools.train``'s entry, in process:
+    StreamYOLO-l at full width (``l_s50_onex_dfp_tal_filp``), ``--fp16``
+    (bf16 autocast, float32 master weights), batch 8, 2 epochs of the
+    config's multiscale sizes on 2x24 raw 1200x1920 synthetic train frames,
+    the EMA eval after each epoch (sequential-dedup, guard armed) on the
+    offline eval's 2x11 val frames, all in memory (annotation jsons under ``build/``).
+    Checks finite losses, B1 once per eval batch per epoch (B2 never), at
+    least two input sizes, the checkpoints, ``--resume`` (step and epoch),
+    and the eval CLI's COCO rows on ``latest_ckpt.pth`` against the
+    trainer's own evaluator on its in-memory EMA model, both with cuDNN off.
+    Then one float32 train step (TF32 off) of the card against the CPU, the
+    overfit recipe on the card, and the times."""
+    import torch
+
+    from streamyolo_torch.data import SyntheticArgoverse
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.models.losses import assign_outputs, streamyolo_losses
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.tools import eval as eval_tool
+    from streamyolo_torch.tools import train as train_tool
+
+    raw_size = (2 * INPUT[0], 2 * INPUT[1])
+    synths = {"train": SyntheticArgoverse(seq_lens=(TRAIN_FRAMES,) * TRAIN_SEQS, size=raw_size,
+                                          seed=SEED + 1),
+              "val": SyntheticArgoverse(seq_lens=(EVAL_FRAMES,) * EVAL_SEQS, size=raw_size,
+                                        seed=SEED)}
+    ann_dir = out_dir / "Argoverse-HD" / "annotations"
+    ann_dir.mkdir(parents=True, exist_ok=True)
+    for split, synth in synths.items():
+        images = [dict(img, split=split) for img in synth.data["images"]]
+        (ann_dir / f"{split}.json").write_text(json.dumps(dict(synth.data, images=images)))
+    load_frame = SplitFrames(**synths)
+
+    exp = get_exp(exp_name=EVAL_CONFIG).merge(["data_dir", str(out_dir), "data_num_workers", "0"])
+    dataset = exp.get_data_loader(batch_size=2, no_aug=True, load_frame=load_frame).dataset
+
+    def batch_of(indices):
+        items = [dataset[i] for i in indices]
+        return {"images": torch.from_numpy(np.stack([it[0] for it in items])).cuda(),
+                "labels": torch.from_numpy(np.stack([it[1][0] for it in items])).cuda(),
+                "support_labels": torch.from_numpy(np.stack([it[1][1] for it in items])).cuda()}
+
+    init = train_init(exp)
+    torch.save(init, out_dir / "init.pth")
+    cfg = f"cfgs/{EVAL_CONFIG}.py"
+    # the eval keeps every candidate above 1e-4 (obj ~0.01 x cls ~0.5 at the
+    # start), so the eval of the short run has rows to compare
+    data_opts = ["data_dir", str(out_dir), "output_dir", str(out_dir / "runs"),
+                 "test_conf", str(TRAIN_TEST_CONF)]
+    train_opts = [*data_opts, "max_epoch", str(TRAIN_EPOCHS), "no_aug_epochs", str(TRAIN_EPOCHS),
+                  "warmup_epochs", "1", "data_num_workers", str(TRAIN_WORKERS),
+                  "save_history_ckpt", "False", "print_interval", "3", "seed", str(SEED)]
+    run_dir = out_dir / "runs" / "train"
+
+    nms_keep.launches = 0
+    downsample2x.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-expn", "train",
+                               "-c", str(out_dir / "init.pth"), *train_opts],
+                              load_frame=load_frame)
+    torch.cuda.synchronize()
+    train_wall_s = time.perf_counter() - t0
+    launches = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_eval_batches = len(trainer.evaluator.dataloader)
+    steps = TRAIN_EPOCHS * trainer.max_iter
+    check(trainer.max_iter == TRAIN_SEQS * TRAIN_FRAMES // TRAIN_BATCH and trainer.state.step == steps,
+          f"trained {trainer.state.step} steps, not {steps}")
+    check(launches == {"nms": TRAIN_EPOCHS * n_eval_batches, "preproc": 0},
+          f"train: kernel launches {launches} for {TRAIN_EPOCHS} evals of {n_eval_batches} batches")
+    logged = list(trainer.meter["total_loss"]._deque) + [float(trainer._last_metrics["total_loss"])]
+    check(all(np.isfinite(v) for v in logged), f"train: a loss is not finite: {logged}")
+    check(all(p.dtype == torch.float32 for p in trainer.model.parameters())
+          and trainer.eval_model.dtype == torch.bfloat16,
+          "train: master weights not float32 or eval modules not bf16")
+    by_size, data_ms = {}, []
+    for size, ms, wait in trainer.step_log:
+        by_size.setdefault(size, []).append(ms)
+        data_ms.append(wait)
+    check(len(by_size) >= 2 and tuple(INPUT) in by_size,
+          f"multiscale ran the sizes {sorted(by_size)}, not two or more with {INPUT}")
+    for name in ("latest_ckpt.pth", "last_epoch_ckpt.pth"):
+        check((run_dir / name).is_file(), f"train: {name} not written")
+    check(not list(run_dir.glob("*.tmp")), "train: a temporary checkpoint was left behind")
+    check([e["epoch"] for e in trainer.eval_history] == list(range(1, TRAIN_EPOCHS + 1)),
+          "train: not one eval per epoch")
+
+    # --resume: step and epoch restored (max_epoch reached: no further step)
+    resumed = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-expn", "train",
+                               "--resume", *train_opts], load_frame=load_frame)
+    check(resumed.start_epoch == TRAIN_EPOCHS and resumed.state.step == steps
+          and resumed.best_ap == trainer.best_ap,
+          f"--resume restored epoch {resumed.start_epoch}, step {resumed.state.step}")
+    check(all(torch.equal(v, trainer.state.ema.state[k])
+              for k, v in resumed.state.ema.state.items()), "--resume: the EMA differs")
+    del resumed
+
+    # the eval CLI on the checkpoint against the trainer's own evaluator on
+    # its in-memory EMA model, both on PyTorch's own convolution (cuDNN off:
+    # an image then rounds alike at every batch row; see the dedup guard in
+    # eval/seq_forward.py)
+    with torch.backends.cudnn.flags(enabled=False):
+        fwd = trainer.exp.get_dedup_forward_fn(trainer.eval_model, trainer.evaluator.dataset)
+        (ap, _, _), rows_trainer = trainer.evaluator.evaluate(fwd, return_outputs=True)
+        cli = eval_tool.main(["-f", cfg, "-c", str(run_dir / "latest_ckpt.pth"), "-b",
+                              str(TRAIN_BATCH), "--fp16", "-expn", "eval_ckpt", *data_opts],
+                             load_frame=load_frame)
+    # random weights: the eval-mode trunk normalises each frame by running
+    # statistics of other frames, and a random trunk amplifies that
+    # difference until some boxes' exp(w, h) may overflow; scores stay
+    # finite, and a NaN anywhere would fail the equality
+    inf_rows = sum(not np.isfinite(r["bbox"]).all() for r in rows_trainer)
+    check(len(rows_trainer) > 0 and all(np.isfinite(r["score"]) for r in rows_trainer)
+          and not any(np.isnan(r["bbox"]).any() for r in rows_trainer),
+          f"train: the eval's {len(rows_trainer)} rows hold a NaN or a non-finite score")
+    check(cli["rows"] == rows_trainer,
+          f"eval -c latest_ckpt.pth: {len(cli['rows'])} rows against the trainer's "
+          f"{len(rows_trainer)}, not equal")
+
+    warm = {f"{h}x{w}": ms[1:] for (h, w), ms in by_size.items()}
+    step_ms = statistics.median(warm[f"{INPUT[0]}x{INPUT[1]}"])
+    times = {"step_ms_600x960": step_ms,
+             "images_per_s_600x960": TRAIN_BATCH * 1e3 / step_ms,
+             "step_ms_warm_by_size": {k: statistics.median(v) for k, v in warm.items() if v},
+             "steps_timed_by_size": {k: len(v) for k, v in warm.items()},
+             "data_wait_ms_per_step": data_ms,
+             "data_wait_ms_median": statistics.median(data_ms),
+             "host_iter_ms_per_step": 1e3 * trainer.meter["iter_time"].global_avg,
+             "peak_device_memory_gb": peak_gb,
+             "eval_ms_per_image_by_epoch": [e["ms_per_image"] for e in trainer.eval_history],
+             "train_wall_s": train_wall_s}
+    del trainer, fwd
+    torch.cuda.empty_cache()
+
+    # float32 on the card against the CPU, TF32 off, cuDNN's deterministic
+    # algorithms: one train step of the full-width model from the same
+    # weights on a 192x320 batch of 2, and the card in float64 as the
+    # reference both float32 runs approximate
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.randint(0, 256, (GRAD_BATCH, *GRAD_INPUT, 6), np.uint8))
+    labels, support = (torch.from_numpy(a) for a in synthetic_labels(rng, GRAD_BATCH, GRAD_INPUT))
+    runs = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for name, dev, dtype in (("card", "cuda", torch.float32), ("card64", "cuda", torch.float64),
+                                 ("cpu", "cpu", torch.float32)):
+            model = exp.get_model(dev, dtype=dtype)
+            model.load_state_dict(init)
+            model.train()
+            outputs = model(images.to(dev), mode="off_pipe")
+            assign = assign_outputs(outputs, labels.to(dev), NCLS)
+            losses = streamyolo_losses(outputs, labels.to(dev), support.to(dev), NCLS,
+                                       gamma=exp.tal_gamma, ignore_thr=exp.tal_ignore_thr,
+                                       ignore_value=exp.tal_ignore_value)
+            losses["total_loss"].backward()
+            runs[name] = {"fg": assign.fg_mask.cpu(),
+                          "losses": {k: float(v.detach()) for k, v in losses.items()},
+                          "grads": {n: p.grad.cpu().double() for n, p in model.named_parameters()}}
+            del model, outputs, losses
+
+    def grad_gaps(a, b):
+        rel = {n: float((g - b[n]).abs().max() / b[n].abs().max().clamp(min=1e-30))
+               for n, g in a.items()}
+        worst = max(rel, key=rel.get)
+        return {"max": rel[worst], "worst": worst, "median": statistics.median(rel.values())}
+
+    gpu, cpu, ref = runs["card"], runs["cpu"], runs["card64"]
+    loss_rel = {k: abs(gpu["losses"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["losses"].items()}
+    card_vs_cpu = {"fg_equal": bool(torch.equal(gpu["fg"], cpu["fg"])),
+                   "fg_equal_float64": bool(torch.equal(gpu["fg"], ref["fg"])),
+                   "num_fg": int(cpu["fg"].sum()), "loss_rel_max": max(loss_rel.values()),
+                   "loss_rel": loss_rel, "grad_rel": grad_gaps(cpu["grads"], gpu["grads"]),
+                   "card_vs_float64": grad_gaps(gpu["grads"], ref["grads"]),
+                   "cpu_vs_float64": grad_gaps(cpu["grads"], ref["grads"]),
+                   "grad_tensors": len(gpu["grads"])}
+    del runs, gpu, cpu, ref
+
+    # the learning signal: the JAX package's overfit recipe at its own size
+    # (depth 0.33, width 0.25, 64x96, batch 2), float32 and bf16; last < 0.5 first
+    small = get_exp(exp_name="s_s50_onex_dfp_tal_flip").merge(["depth", "0.33", "width", "0.25"])
+    rng = np.random.RandomState(0)
+    lab = np.zeros((2, 8, 5), np.float32)
+    lab[:, 0] = [2.0, 48.0, 32.0, 24.0, 18.0]
+    lab[:, 1] = [5.0, 20.0, 50.0, 16.0, 12.0]
+    fixed = {"images": torch.from_numpy(rng.randint(0, 255, (2, 64, 96, 6)).astype(np.float32)),
+             "labels": torch.from_numpy(lab), "support_labels": torch.from_numpy(lab.copy())}
+    fixed = {k: v.cuda() for k, v in fixed.items()}
+    overfit = {}
+    for name, fp16 in (("float32", False), ("bf16", True)):
+        torch.backends.cudnn.allow_tf32 = fp16
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = small.get_model("cuda", dtype=torch.float32)
+        model.load_state_dict(small.init_model())
+        overfit[name] = overfit_ratio(model, fixed, fp16)
+    torch.backends.cudnn.allow_tf32 = True
+    # once more at full width, on two letterboxed synthetic train frames
+    model = exp.get_model("cuda", dtype=torch.float32)
+    model.load_state_dict(init)
+    overfit["full_width_bf16"] = overfit_ratio(model, batch_of((0, TRAIN_FRAMES + 5)), True)
+    del model
+
+    emit("train", config=EVAL_CONFIG, model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT),
+         dtype="bf16 autocast, float32 master weights", batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+         steps=steps, data_num_workers=TRAIN_WORKERS,
+         fixture=f"train {TRAIN_SEQS}x{TRAIN_FRAMES}, val {EVAL_SEQS}x{EVAL_FRAMES} frames "
+                 f"{raw_size[0]}x{raw_size[1]} synthetic, in memory",
+         sizes=sorted(f"{h}x{w}" for h, w in by_size), losses_logged=logged,
+         eval_batches=n_eval_batches, launches=launches, eval_ap=100 * float(ap),
+         eval_rows=len(rows_trainer), eval_rows_infinite_box=inf_rows,
+         ckpt_rows_equal_cudnn_off=True,
+         resume={"start_epoch": TRAIN_EPOCHS, "step": steps}, times=times,
+         fp32_step_card_vs_cpu=card_vs_cpu, overfit=overfit)
+    check(card_vs_cpu["fg_equal"], "SimOTA fg_mask on the card differs from the CPU's")
+    # stated bounds: losses rtol 1e-3, every gradient within 1e-2 of its max |g|
+    check(card_vs_cpu["loss_rel_max"] <= 1e-3, f"train step losses card vs CPU: {loss_rel}")
+    check(card_vs_cpu["grad_rel"]["max"] <= 1e-2,
+          f"train step gradient card vs CPU: {card_vs_cpu['grad_rel']}")
+    for name in ("float32", "bf16"):
+        check(np.isfinite(overfit[name]["last"]) and overfit[name]["ratio"] < 0.5,
+              f"overfit ({name}): loss {overfit[name]['first']} -> {overfit[name]['last']}")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -879,6 +1172,9 @@ def main() -> int:
     offline = phase_offline_eval(Path(__file__).resolve().parent / "build" / "chip_smoke_eval",
                                  floor)
 
+    # 9. training through tools/train.py (B1 in the per-epoch EMA eval)
+    train = phase_train(Path(__file__).resolve().parent / "build" / "chip_smoke_train")
+
     # B1 at the serving shapes: the candidates of a real steady step
     with torch.inference_mode():
         preds, _ = model(img_host.to(torch.bfloat16), buffer=host._buffer, mode="on_pipe")
@@ -937,7 +1233,8 @@ def main() -> int:
                               "sap_rehearsal": rehearsal_launches["nms"],
                               "wallclock_stream": wallclock_launches["nms"],
                               "offline_eval_dedup": offline["launches"]["dedup"]["nms"],
-                              "offline_eval_no_dedup": offline["launches"]["no_dedup"]["nms"]},
+                              "offline_eval_no_dedup": offline["launches"]["no_dedup"]["nms"],
+                              "train": train["launches"]["nms"]},
          "eval_k1000": offline["times"],
          "batch8": {"shape": f"B=8 K={b8_boxes.shape[1]} valid={int(b8_valid.sum())}, "
                              "candidates of a real multi-stream step",
@@ -958,7 +1255,8 @@ def main() -> int:
                               "wallclock_stream": wallclock_launches["preproc"],
                               "offline_eval_dedup": offline["launches"]["dedup"]["preproc"],
                               "offline_eval_no_dedup":
-                                  offline["launches"]["no_dedup"]["preproc"]}},
+                                  offline["launches"]["no_dedup"]["preproc"],
+                              "train": train["launches"]["preproc"]}},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

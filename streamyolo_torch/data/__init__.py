@@ -12,11 +12,25 @@ from streamyolo_torch.data.dbcode import (
     make_synthetic_argoverse,
     pseudo_gt_from_detections,
 )
-from streamyolo_torch.data.loader import DataLoader
-from streamyolo_torch.data.transforms import DoubleValTransform, ValTransform, preproc
+from streamyolo_torch.data.loader import (
+    DataLoader,
+    DevicePrefetcher,
+    InfiniteSampler,
+    YoloBatchSampler,
+    worker_init_reset_seed,
+)
+from streamyolo_torch.data.mosaic import MosaicDetection, StillMosaicDetection
+from streamyolo_torch.data.transforms import (
+    DoubleTrainTransform,
+    DoubleValTransform,
+    TrainTransform,
+    ValTransform,
+    preproc,
+)
 
-__all__ = ["ARGOVERSE_CLASSES", "COCO", "COCO_SUBSET", "DataLoader",
-           "DoubleValTransform", "ONE_ARGOVERSEDataset", "STILL_ARGOVERSEDataset",
-           "SyntheticArgoverse", "TWO_ARGOVERSEDataset", "ValTransform",
-           "db_from_img_folder", "imread", "make_synthetic_argoverse", "preproc",
-           "pseudo_gt_from_detections"]
+__all__ = ["ARGOVERSE_CLASSES", "COCO", "COCO_SUBSET", "DataLoader", "DevicePrefetcher",
+           "DoubleTrainTransform", "DoubleValTransform", "InfiniteSampler", "MosaicDetection",
+           "ONE_ARGOVERSEDataset", "STILL_ARGOVERSEDataset", "StillMosaicDetection",
+           "SyntheticArgoverse", "TWO_ARGOVERSEDataset", "TrainTransform", "ValTransform",
+           "YoloBatchSampler", "db_from_img_folder", "imread", "make_synthetic_argoverse",
+           "preproc", "pseudo_gt_from_detections", "worker_init_reset_seed"]

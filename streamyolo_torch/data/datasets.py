@@ -1,5 +1,5 @@
-"""Argoverse-HD streaming datasets for evaluation (ONE_ / TWO_ / STILL_),
-the counterparts of ``streamyolo_tpu/data/datasets.py``.
+"""Argoverse-HD streaming datasets (ONE_ / TWO_ / STILL_), the counterparts
+of ``streamyolo_tpu/data/datasets.py``.
 
   * ``ONE_ARGOVERSEDataset``: each sample is the (current, support = t-1)
     frame pair; the target is the labels of frame t+1 (the model predicts
@@ -17,8 +17,10 @@ Pixels come through ``load_frame(image_dict) -> BGR uint8``: by default
 ``imread`` of ``<data_dir>/Argoverse-1.1/tracking/<seq_dir>/<name>`` (cv2,
 imported only there), or e.g. ``SyntheticArgoverse.frame`` for frames kept
 in memory. The annotation tuples hold the image dicts where the JAX package
-holds file names. The ``--cache`` memmap and the train-side pieces come with
-the training slice.
+holds file names. ``input_dim`` is the mutable letterbox size of the
+transforms (the yolox ``Dataset.input_dim`` indirection); frames are read
+resized to ``img_size``. The ``--cache`` memmap of resized frames is not
+ported yet: ``cache=True`` raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ import numpy as np
 
 from streamyolo_torch.data.coco import COCO
 from streamyolo_torch.data.transforms import resize_u8
+
+CACHE_MESSAGE = ("--cache (the memmap of resized frames) is not ported yet "
+                 "(ROADMAP queue A item 12, the augmentation path without cv2)")
 
 
 def imread(path: str) -> np.ndarray:
@@ -57,7 +62,10 @@ class _ArgoverseBase:
         img_size: Tuple[int, int] = (416, 416),
         preproc=None,
         load_frame: Optional[Callable[[dict], np.ndarray]] = None,
+        cache: bool = False,
     ):
+        if cache:
+            raise NotImplementedError(CACHE_MESSAGE)
         self.data_dir = data_dir
         self.json_file = json_file
         self.coco = COCO(os.path.join(data_dir, "Argoverse-HD", "annotations", json_file))
@@ -66,9 +74,19 @@ class _ArgoverseBase:
         self.class_ids = sorted(self.coco.getCatIds())
         self.name = name
         self.img_size = tuple(img_size)
+        self._input_dim = self.img_size
+        self.enable_mosaic = False
         self.preproc = preproc
         self.load_frame = load_frame or self._imread
         self.annotations = [self._load_anno_from_id(i) for i in self.ids]
+
+    @property
+    def input_dim(self):
+        return self._input_dim
+
+    @input_dim.setter
+    def input_dim(self, dim):
+        self._input_dim = tuple(dim)
 
     def __len__(self):
         return len(self.ids)
@@ -154,7 +172,7 @@ class ONE_ARGOVERSEDataset(_ArgoverseBase):
         img, support_img, target, support_target, img_info, img_id = self.pull_item(index)
         if self.preproc is not None:
             img, support_img, target, support_target = self.preproc(
-                (img, support_img), (target, support_target), self.img_size)
+                (img, support_img), (target, support_target), self.input_dim)
         return (np.concatenate((img, support_img), axis=-1), (target, support_target),
                 img_info, img_id)
 
@@ -221,5 +239,5 @@ class STILL_ARGOVERSEDataset(_ArgoverseBase):
     def __getitem__(self, index):
         img, target, img_info, img_id = self.pull_item(index)
         if self.preproc is not None:
-            img, target = self.preproc(img, target, self.img_size)
+            img, target = self.preproc(img, target, self.input_dim)
         return img, target, img_info, img_id

@@ -75,6 +75,15 @@ def _per_image_convolution(device: torch.device, on: bool):
         torch.backends.cudnn.enabled = enabled
 
 
+def guard_gaps(got: torch.Tensor, want: torch.Tensor):
+    """(max box gap in px, max score gap) of two decoded ``[B, N, 5+C]``
+    predictions: equal entries (infinities included) differ by 0, and a NaN
+    on either side gives a NaN gap, which no tolerance passes."""
+    got, want = got.float(), want.float()
+    diff = torch.where(got == want, 0.0, (got - want).abs())
+    return float(diff[..., :4].max()), float(diff[..., 4:].max())
+
+
 class SequentialDedupForward:
     """``forward_fn`` for the evaluators: it advertises ``needs_ids``, so the
     evaluator passes the batch's image ids; padded tail rows self-fuse and
@@ -146,14 +155,12 @@ class SequentialDedupForward:
 
     def _assert_first_batch_parity(self, images, preds, n_real: int):
         """Run the dual-frame forward on the same batch and compare the box
-        and score channels of the real rows."""
+        and score channels of the real rows (``guard_gaps``); a NaN on
+        either side fails the guard."""
         box_tol, score_tol = self._verify_tol
-        want = self._verify_fn(images)[:n_real].float()
-        got = preds[:n_real].float()
-        box_diff = float((got[..., :4] - want[..., :4]).abs().max())
-        score_diff = float((got[..., 4:] - want[..., 4:]).abs().max())
+        box_diff, score_diff = guard_gaps(preds[:n_real], self._verify_fn(images)[:n_real])
         self.last_guard = (box_diff, score_diff)
-        if box_diff > box_tol or score_diff > score_tol:
+        if not (box_diff <= box_tol and score_diff <= score_tol):
             raise AssertionError(
                 "sequential-dedup eval disagrees with the dual-frame forward "
                 f"on the first batch: max box diff {box_diff:.3e} px (tol "

@@ -12,17 +12,24 @@ the device, and ``init_model()`` gives the float32 state dict of the seeded
 initialisation (the role of the JAX ``init_model``'s variables). A caller
 merges a checkpoint into that state dict and folds BN into it in float32
 (``utils/fuse.py``) before ``load_state_dict`` casts it once to the
-module's dtype. The train side (loaders, schedules, trainer) comes with the
-training slice.
+module's dtype.
+
+The train side: ``get_data_loader`` (the mosaic wrapper's non-mosaic branch
+over the train split, the seeded infinite sampler), the LR schedule, the
+``Trainer``, and multiscale training: ``random_resize`` draws a size per
+10-step window from a NumPy ``RandomState`` seeded by (seed, window), and
+``preprocess`` resizes a batch on its device with ``F.interpolate``
+(bilinear, no antialiasing) and scales the cxcywh labels.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from streamyolo_torch.exp.base import BaseExp
 
@@ -78,15 +85,17 @@ class StreamExp(BaseExp):
                             in_channels=in_channels, act=self.act)
         return StreamYOLO(backbone=backbone, head=head)
 
-    def get_model(self, device="cuda") -> torch.nn.Module:
+    def get_model(self, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
         """The model in eval mode on ``device``, its modules in the compute
         dtype (bf16 modules for ``compute_dtype='bfloat16'``, not only a bf16
-        input), channels_last on a card. Load weights into it with
+        input) unless ``dtype`` is given (the trainer's float32 master
+        weights), channels_last on a card. Load weights into it with
         ``load_state_dict`` (``init_model()`` for the seeded ones)."""
         from streamyolo_torch.utils.device import resolve_device
 
         dev = resolve_device(device)
-        dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+        if dtype is None:
+            dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
         model = self._build().to(device=dev, dtype=dtype).eval()
         if dev.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -150,6 +159,58 @@ class StreamExp(BaseExp):
         return {"one": ONE_ARGOVERSEDataset, "two": TWO_ARGOVERSEDataset,
                 "still": STILL_ARGOVERSEDataset}[self.dataset_name]
 
+    def get_data_loader(self, batch_size: int, is_distributed: bool = False,
+                        no_aug: bool = False, cache_img: bool = False,
+                        load_frame: Optional[Callable[[dict], np.ndarray]] = None):
+        """The train loader: the train split through the mosaic wrapper's
+        non-mosaic branch (shared-flip mirror, letterbox, 120 labels),
+        batches from ``InfiniteSampler`` seeded by ``seed`` (0 if unset).
+        ``load_frame`` supplies the pixels as in ``get_eval_loader``. The
+        mosaic branch (``no_aug=False``), ``cache_img`` and a distributed
+        loader are not ported yet and raise."""
+        from streamyolo_torch.data.datasets import CACHE_MESSAGE
+        from streamyolo_torch.data.loader import (
+            DataLoader,
+            InfiniteSampler,
+            YoloBatchSampler,
+            _IndexUnpackDataset,
+            worker_init_reset_seed,
+        )
+        from streamyolo_torch.data.mosaic import (
+            MOSAIC_MESSAGE,
+            MosaicDetection,
+            StillMosaicDetection,
+        )
+        from streamyolo_torch.data.transforms import DoubleTrainTransform, TrainTransform
+
+        if is_distributed:
+            raise NotImplementedError(
+                "distributed training is not ported yet (ROADMAP queue A item 14)")
+        if not no_aug:
+            raise NotImplementedError(MOSAIC_MESSAGE)
+        if cache_img:
+            raise NotImplementedError(CACHE_MESSAGE)
+        double = self.dataset_name in ("one", "two")
+        transform_cls = DoubleTrainTransform if double else TrainTransform
+        dataset = self._dataset_cls()(
+            data_dir=self.data_dir, json_file=self.train_ann, name="train",
+            img_size=self.input_size,
+            preproc=transform_cls(max_labels=50, hsv=False, flip=True),
+            load_frame=load_frame)
+        wrapper_cls = MosaicDetection if double else StillMosaicDetection
+        dataset = wrapper_cls(
+            dataset, mosaic=not no_aug, img_size=self.input_size,
+            preproc=transform_cls(max_labels=120, hsv=False, flip=True),
+            degrees=self.degrees, translate=self.translate, scale=self.mosaic_scale,
+            shear=self.shear, perspective=0.0, enable_mixup=self.enable_mixup,
+            mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob)
+        self.dataset = dataset
+        sampler = InfiniteSampler(len(dataset), seed=self.seed if self.seed else 0)
+        batch_sampler = YoloBatchSampler(sampler=sampler, batch_size=batch_size,
+                                         drop_last=False, mosaic=not no_aug)
+        return DataLoader(_IndexUnpackDataset(dataset), num_workers=self.data_num_workers,
+                          batch_sampler=batch_sampler, worker_init_fn=worker_init_reset_seed)
+
     def get_eval_loader(self, batch_size: int, is_distributed: bool = False,
                         testdev: bool = False,
                         load_frame: Optional[Callable[[dict], np.ndarray]] = None):
@@ -189,3 +250,57 @@ class StreamExp(BaseExp):
 
     def eval(self, forward_fn, evaluator, is_distributed: bool = None, half: bool = False):
         return evaluator.evaluate(forward_fn, is_distributed, half)
+
+    # ---------------- training ----------------
+
+    def get_lr_schedule(self, batch_size: int, iters_per_epoch: int) -> Callable[[int], float]:
+        """The schedule of ``scheduler`` at ``lr = basic_lr_per_img * batch_size``."""
+        return self.get_lr_scheduler(self.basic_lr_per_img * batch_size, iters_per_epoch)
+
+    def get_lr_scheduler(self, lr: float, iters_per_epoch: int) -> Callable[[int], float]:
+        """The reference's name and calling convention (the LR itself)."""
+        from streamyolo_torch.train.lr import build_lr_schedule
+
+        return build_lr_schedule(
+            self.scheduler, lr=lr, iters_per_epoch=iters_per_epoch, max_epoch=self.max_epoch,
+            warmup_epochs=self.warmup_epochs, warmup_lr_start=self.warmup_lr,
+            min_lr_ratio=self.min_lr_ratio, no_aug_epochs=self.no_aug_epochs)
+
+    def get_trainer(self, args):
+        from streamyolo_torch.train.trainer import Trainer
+
+        return Trainer(self, args)
+
+    def random_resize(self, step: int, epoch: int) -> Tuple[int, int]:
+        """The multiscale input size of 10-step window ``step``: the same on
+        every process without a broadcast; the last epoch keeps
+        ``input_size``."""
+        if self.random_size is None or epoch >= self.max_epoch - 1:
+            return tuple(self.input_size)
+        rng = np.random.RandomState((self.seed or 0) * 1_000_003 + step)
+        size = int(rng.randint(self.random_size[0], self.random_size[1] + 1))
+        size_factor = self.input_size[0] * 1.0 / self.input_size[1]
+        return (16 * int(size * size_factor), 16 * size)
+
+    def preprocess(self, inputs: torch.Tensor, targets: Sequence[torch.Tensor], tsize):
+        """Resize an NHWC batch (uint8 or float) to ``tsize`` on its device
+        (``F.interpolate`` bilinear, ``align_corners=False``, no
+        antialiasing; float32 out) and scale the cxcywh labels: columns
+        ``1::2`` by the x scale, ``2::2`` by the y scale. The same size
+        returns the inputs as they are."""
+        scale_y = tsize[0] / self.input_size[0]
+        scale_x = tsize[1] / self.input_size[1]
+        if scale_x == 1 and scale_y == 1:
+            return inputs, tuple(targets)
+        x = inputs.permute(0, 3, 1, 2)
+        if not x.is_floating_point():
+            x = x.float()  # the uint8 host pipeline
+        x = F.interpolate(x, size=(tsize[0], tsize[1]), mode="bilinear",
+                          align_corners=False, antialias=False)
+        scaled = []
+        for t in targets:
+            t = t.clone()
+            t[..., 1::2] *= scale_x
+            t[..., 2::2] *= scale_y
+            scaled.append(t)
+        return x.permute(0, 2, 3, 1), tuple(scaled)

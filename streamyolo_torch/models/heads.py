@@ -108,10 +108,13 @@ def level_grids(
 @functools.lru_cache(maxsize=16)
 def _device_grids(hw: Tuple[Tuple[int, int], ...], strides: Tuple[int, ...],
                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grid constants on ``device``, made once per geometry (not per frame)."""
+    """Grid constants on ``device``, made once per geometry (not per frame),
+    outside inference mode: the eval (under ``torch.inference_mode``) and the
+    training loss (under autograd) share them."""
     grid_xy, exp_strides, _ = level_grids(hw, strides)
-    return (torch.from_numpy(grid_xy).to(device),
-            torch.from_numpy(exp_strides).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(grid_xy).to(device),
+                torch.from_numpy(exp_strides).to(device))
 
 
 def flatten_levels(outputs: Sequence[torch.Tensor]) -> torch.Tensor:

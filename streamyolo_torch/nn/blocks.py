@@ -13,7 +13,9 @@ trick; only its parameter names ``stem.conv.conv.weight`` / ``stem.conv.bn``
 matter, and ``Focus`` below has them).
 
 BatchNorm: eps=1e-3, torch momentum 0.03 (the JAX package's flax momentum
-0.97 is the weight of the old statistic).
+0.97 is the weight of the old statistic). In training, ``BatchNorm2d``
+moves the running variance by the *biased* batch variance, as flax does;
+``torch.nn.BatchNorm2d`` would use the unbiased one, n / (n - 1) larger.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
@@ -37,6 +40,41 @@ def get_activation(name: str = "silu") -> nn.Module:
     raise AttributeError(f"Unsupported act type: {name}")
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates the running statistics
+    as flax's ``nn.BatchNorm`` does: by the batch mean and the *biased*
+    batch variance, ``(1 - momentum) * running + momentum * batch``. The
+    normalisation (batch statistics, biased variance) is torch's own.
+
+    ``F.batch_norm`` computes the batch statistics once, for the
+    normalisation, and writes them into two scratch buffers at momentum 1
+    (the mean and the unbiased variance); the running statistics are then
+    blended from those, the variance scaled by (n - 1) / n. The scratch
+    buffers are not in the state dict, whose names are
+    ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_buffer("_batch_mean", torch.zeros_like(self.running_mean),
+                             persistent=False)
+        self.register_buffer("_batch_var", torch.zeros_like(self.running_var),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # momentum 1: the scratch buffers become this batch's statistics
+        y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight, self.bias,
+                         True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(self._batch_mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(self._batch_var, alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class BaseConv(nn.Module):
     """Conv2d(bias=False) -> BatchNorm -> activation, ``(k - 1) // 2`` padding."""
 
@@ -46,7 +84,7 @@ class BaseConv(nn.Module):
         pad = (ksize - 1) // 2
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride, pad,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -115,7 +115,12 @@ def speed_test(exp, model, batch_size: int, iters: int = 10) -> float:
     return float(np.median(times))
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def main(argv: Optional[Sequence[str]] = None,
+         load_frame: Optional[Callable[[dict], np.ndarray]] = None):
+    """Evaluate as the command line says; returns ``ap``, ``ap50``, the
+    ``summary`` and the COCO ``rows`` (or the ``--speed`` time).
+    ``load_frame`` (image dict -> BGR uint8 frame) supplies the pixels
+    instead of reading them from ``data_dir``."""
     args = make_parser().parse_args(argv)
     if args.int8 or args.per_channel_act or args.calib_batches is not None:
         raise NotImplementedError(INT8_MESSAGE)
@@ -181,16 +186,16 @@ def main(argv: Optional[Sequence[str]] = None):
                     f"({args.batch_size / med:.1f} imgs/s)")
         return {"speed_s_per_batch": med}
 
-    evaluator = exp.get_evaluator(args.batch_size)
+    evaluator = exp.get_evaluator(args.batch_size, load_frame=load_frame)
     if can_dedup and not args.no_dedup:
         logger.info("sequential-dedup eval (default; --no-dedup for the dual-frame forward)")
         forward_fn = exp.get_dedup_forward_fn(model, evaluator.dataset)
     else:
         forward_fn = exp.get_forward_fn(model)
-    ap, ap50, summary = exp.eval(forward_fn, evaluator)
+    (ap, ap50, summary), rows = evaluator.evaluate(forward_fn, return_outputs=True)
     logger.info(f"\n{summary}")
     logger.info(f"AP: {ap:.4f}  AP50: {ap50:.4f}")
-    return {"ap": float(ap), "ap50": float(ap50), "summary": summary}
+    return {"ap": float(ap), "ap50": float(ap50), "summary": summary, "rows": rows}
 
 
 if __name__ == "__main__":

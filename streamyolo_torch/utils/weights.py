@@ -16,7 +16,9 @@ The port's modules use the yolox ``state_dict`` names
 JAX exports no ``num_batches_tracked``; the loaders here fill it (0) for
 every BatchNorm so strict loading works. ``merge_state_dict`` puts a loaded
 checkpoint over a model's own state dict, strictly (eval) or tolerating
-missing and mismatched entries (fine-tuning).
+missing and mismatched entries (fine-tuning). ``jax_train_state_to_port``
+carries a whole mid-training state across: weights, BatchNorm statistics,
+SGD momentum, EMA and step.
 """
 
 from __future__ import annotations
@@ -89,6 +91,33 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch
             arr = arr.transpose(transpose)
         out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return with_num_batches_tracked(out)
+
+
+def jax_train_state_to_port(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX ``TrainState``'s trees, as NumPy arrays -> the port's train
+    state.
+
+    ``state`` holds ``params``, ``batch_stats``, ``trace`` (the momentum of
+    optax's ``trace`` transform, a tree like ``params``), ``ema_params``,
+    ``ema_batch_stats`` and ``step``. Returns ``model`` and ``ema`` (state
+    dicts), ``momentum`` (parameter name -> SGD momentum buffer, convs
+    OIHW) and ``step`` (an int); ``train/step.py::load_carried_state``
+    installs them."""
+    momentum = {}
+    for path, value in _flatten(state["trace"]):
+        arr = np.asarray(value)
+        key, transpose = flax_path_to_torch("params", path, arr.ndim)
+        if transpose is not None:
+            arr = arr.transpose(transpose)
+        momentum[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    return {
+        "model": jax_variables_to_state_dict(
+            {"params": state["params"], "batch_stats": state["batch_stats"]}),
+        "ema": jax_variables_to_state_dict(
+            {"params": state["ema_params"], "batch_stats": state["ema_batch_stats"]}),
+        "momentum": momentum,
+        "step": int(np.asarray(state["step"])),
+    }
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

@@ -41,7 +41,7 @@ from streamyolo_torch.data import datasets as tdatasets
 from streamyolo_torch.data import transforms as ttransforms
 from streamyolo_torch.data.loader import DataLoader
 from streamyolo_torch.eval import evaluators as tevaluators
-from streamyolo_torch.eval.seq_forward import SequentialDedupForward, support_shifts
+from streamyolo_torch.eval.seq_forward import SequentialDedupForward, guard_gaps, support_shifts
 from streamyolo_torch.exp import SHIPPED_CONFIGS, get_exp
 from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
 from streamyolo_torch.tools import eval as tool
@@ -176,6 +176,31 @@ def test_guard_catches_wrong_shifts(root, models):
     imgs, ids, _ = next(padded_batches(DataLoader(tds, batch_size=4), 4))
     with pytest.raises(AssertionError, match="disagrees with the dual-frame forward"):
         dedup(imgs, ids)
+
+
+def test_guard_fails_on_nan_and_passes_equal_infinities(root, models):
+    """A NaN in the dual-frame forward's predictions fails the first-batch
+    guard (a NaN gap compares false with any tolerance); the same
+    infinities on both sides differ by 0."""
+    _, _, port = models
+    _, tds = dataset_pair(root, "ONE")
+    imgs, ids, _ = next(padded_batches(DataLoader(tds, batch_size=4), 4))
+    off = off_pipe_forward(port)
+
+    def poisoned(images):
+        out = off(images).clone()
+        out[0, 0, 2] = float("nan")
+        return out
+
+    with pytest.raises(AssertionError, match="disagrees"):
+        SequentialDedupForward(port, tds, verify_fn=poisoned)(imgs, ids)
+    a = torch.tensor([[[1.0, float("inf"), 2.0, 3.0, 0.5, 0.25]]])
+    b = a.clone()
+    assert guard_gaps(a, b) == (0.0, 0.0)
+    b[0, 0, 0] = 1.5
+    b[0, 0, 5] = float("nan")
+    box, score = guard_gaps(a, b)
+    assert box == 0.5 and np.isnan(score)
 
 
 def test_fused_state_dict_matches_jax(models):
