@@ -28,7 +28,14 @@ through ``streamyolo_torch/tools/train.py``'s entry (bf16 autocast, batch 8,
 multiscale, the EMA eval after each epoch with kernel B1, checkpoints,
 ``--resume``, the eval CLI on the checkpoint), holds one float32 train step
 of the card against the CPU, and checks the learning signal of a fixed-batch
-overfit. Each phase prints
+overfit. Then it drives the real-time CLI (``streamyolo_torch/tools/
+stream_det.py`` under the wall clock, with ``--sim-zoo`` and with
+``--infinite``, then ``offline_det``, ``streaming_eval``, ``forecast_kf`` and
+``collect_summary``) at full width on the rehearsal's frames, serves the
+same frames through a ``Streamer`` whose detector lives in a spawned child
+on the card, and last trains a tiny StreamYOLO with the port on the
+synthetic video and scores it offline, streaming under the wall clock, in
+simulation at the measured step and at 45 ms, and forecast. Each phase prints
 one JSON line; the line before the last lists the kernels, with their
 launches on every path, and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
@@ -38,8 +45,10 @@ no result. Imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import functools
 import itertools
 import json
+import pickle
 import statistics
 import subprocess
 import sys
@@ -66,6 +75,19 @@ TRAIN_SEQS, TRAIN_FRAMES, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_WORKERS = 2, 24, 8, 2
 GRAD_INPUT, GRAD_BATCH = (192, 320), 2  # the float32 card-vs-CPU train step
 TRAIN_TEST_CONF = 1e-4
 OVERFIT_STEPS, OVERFIT_LR = 60, 5e-3  # the JAX package's overfit recipe
+STREAMER_EXACT_FRAMES = 5  # fp32, cuDNN off: the child's rows against the parent's
+# trained_e2e: a tiny StreamYOLO (the s config at depth 0.33, width 0.25)
+# trained on the synthetic video at its defaults (4 x 75 frames, raw 300x480,
+# in_scale 0.5 -> 150x240) with objects of 1/8 to 1/4 of the frame, then
+# scored offline, streaming under the wall clock, simulated at the measured
+# step and at 45 ms, and forecast
+E2E_SEQS, E2E_FRAMES, E2E_RAW, E2E_OBJ_FRAC = 4, 75, (300, 480), (1 / 8, 1 / 4)
+# no loader workers: each epoch's prefetcher would spawn them anew (~28 s of
+# start-up per epoch on the card's host), where rendering a 300x480 batch in
+# the main process costs a few ms
+E2E_BATCH, E2E_EPOCHS, E2E_LR_PER_IMG, E2E_WORKERS = 16, 22, 0.02 / 16, 0
+E2E_EVAL_BATCH = 64  # the eval CLI's default batch: few batches, few cuDNN autotunes
+E2E_SLOW_S = 0.045  # a latency that misses frames at 30 fps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
@@ -936,6 +958,488 @@ def phase_train(out_dir: Path) -> dict:
     return {"launches": launches}
 
 
+def lifted_state(exp):
+    """The config's seeded float32 state dict with the obj/cls prediction
+    biases 0 (as ``lift_pred_biases``: NMS then sees candidates)."""
+    import torch
+
+    state = exp.init_model()
+    for k in state:
+        if k.startswith(("head.obj_preds.", "head.cls_preds.")) and k.endswith(".bias"):
+            state[k] = torch.zeros_like(state[k])
+    return state
+
+
+def serving_detector(fp32: bool):
+    """StreamYOLO-l at 600x960 with ``device_preproc`` (B2, then B1), the
+    seeded weights of ``EVAL_CONFIG`` with the prediction biases lifted, on
+    the card; bf16 modules unless ``fp32``."""
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.stream import CUDAStreamDetector
+
+    exp = get_exp(exp_name=EVAL_CONFIG)
+    exp.compute_dtype = "float32" if fp32 else "bfloat16"
+    model = exp.get_model("cuda")
+    model.load_state_dict(lifted_state(exp))
+    return CUDAStreamDetector(model, input_size=INPUT, in_scale=0.5, conf_thre=CONF,
+                              nms_thre=NMS, num_classes=NCLS, pre_nms_topk=TOPK,
+                              use_bf16=not fp32, device_preproc=True)
+
+
+def streamer_detector(fp32: bool, cudnn: bool):
+    """Makes the ``Streamer``'s detector; runs in the spawned child.
+    ``serving_detector(fp32)`` with cuDNN on or off (and TF32 off), warmed
+    up. Its ``detect`` returns the parse tuple with the child's kernel
+    launches since the warm-up in the 4th slot (``Streamer`` reads
+    ``result[:3]``)."""
+    import torch
+
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+
+    torch.backends.cudnn.enabled = cudnn
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = serving_detector(fp32)
+    det.warmup(2)
+    nms_keep.launches = 0
+    downsample2x.launches = 0
+
+    def detect(frame):
+        bboxes, scores, labels, _ = det(frame)
+        return bboxes, scores, labels, {"nms": nms_keep.launches,
+                                        "preproc": downsample2x.launches}
+
+    return detect
+
+
+def read_pkl(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def run_summary(run_dir: Path, n_seqs: int, fps: float = 30.0) -> dict:
+    """Checks of a ``stream_det`` run directory (the per-sequence pkls and
+    ``time_info.pkl``; timestamps increasing below each sequence's horizon);
+    returns its runtimes and counts."""
+    seqs = [f"seq{sid:02d}" for sid in range(n_seqs)]
+    ti = read_pkl(run_dir / "time_info.pkl")
+    processed = 0
+    for seq in seqs:
+        res = read_pkl(run_dir / f"{seq}.pkl")
+        ts = res["timestamps"]
+        horizon = ti["n_total"] / n_seqs / fps
+        check(len(ts) > 0 and all(b > a for a, b in zip(ts, ts[1:])) and ts[-1] < horizon,
+              f"{run_dir.name}/{seq}: timestamps not increasing below the horizon")
+        check(len(res["results_parsed"]) == len(ts) == len(res["input_fidx"]),
+              f"{run_dir.name}/{seq}: ragged results")
+        processed += len(ts)
+    check(processed == ti["n_processed"], f"{run_dir.name}: time_info counts "
+          f"{ti['n_processed']} results, the pkls {processed}")
+    rt_ms = [1e3 * r for r in ti["runtime_all"]]
+    return {"processed": ti["n_processed"], "total": ti["n_total"],
+            "runtime_ms": {"mean": statistics.mean(rt_ms), "median": statistics.median(rt_ms),
+                           "max": max(rt_ms)},
+            "share_under_one_frame": ti["n_small_runtime"] / max(ti["n_processed"], 1)}
+
+
+def same_runs(a: Path, b: Path, n_seqs: int) -> bool:
+    """Equal per-sequence pkls: timestamps, frames, runtimes and rows."""
+    for sid in range(n_seqs):
+        x, y = read_pkl(a / f"seq{sid:02d}.pkl"), read_pkl(b / f"seq{sid:02d}.pkl")
+        if any(x[k] != y[k] for k in ("timestamps", "input_fidx", "runtime")):
+            return False
+        if len(x["results_parsed"]) != len(y["results_parsed"]):
+            return False
+        for p, q in zip(x["results_parsed"], y["results_parsed"]):
+            if not all(np.array_equal(u, v) for u, v in zip(p[:3], q[:3])):
+                return False
+    return True
+
+
+def stats_of(summary) -> dict:
+    s = [100 * float(v) for v in summary["stats"]] if summary else [float("nan")] * 3
+    return {"sAP": s[0], "sAP50": s[1], "sAP75": s[2]}
+
+
+def phase_stream_cli(out_dir: Path, synth) -> dict:
+    """The real-time CLI at full width, in process: StreamYOLO-l at 600x960,
+    bf16, seeded weights saved as a ``.pth``, ``--device-preproc``, on the
+    rehearsal's 2 x 30 in-memory 1200x1920 frames. ``stream_det`` under the
+    wall clock; again with ``--sim-zoo`` (the zoo made from that run's
+    ``time_info.pkl``), twice, which must give equal pkls; with
+    ``--infinite``; ``offline_det`` (every frame; its detections above their
+    90th score percentile are the pseudo ground truth); ``streaming_eval``
+    and ``forecast_kf`` on the wall-clock run; ``collect_summary`` over the
+    run directories. Each run's kernel launches are counted from 0 just
+    before it; ``stream_det`` warms up ``WARMUP_FRAMES`` first (one launch
+    of each kernel per frame), and a call whose result lands past a
+    sequence's horizon is made but not recorded."""
+    import torch
+
+    from streamyolo_torch.data import pseudo_gt_from_detections
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import add_to_runtime_zoo
+    from streamyolo_torch.tools import collect_summary, forecast_kf, offline_det, stream_det
+    from streamyolo_torch.tools import streaming_eval
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n_seqs = len(synth.data["sequences"])
+    n_frames = len(synth.data["images"])
+    annot = out_dir / "val.json"
+    annot.write_text(json.dumps(synth.data))
+    weights = out_dir / "l_seed0.pth"
+    torch.save(lifted_state(get_exp(exp_name=EVAL_CONFIG)), weights)
+    common = ["--data-root", str(out_dir), "--annot-path", str(annot),
+              "-f", f"cfgs/{EVAL_CONFIG}.py", "-c", str(weights), "--device-preproc"]
+    runs, launches = {}, {}
+
+    def counted(name, fn):
+        nms_keep.launches = 0
+        downsample2x.launches = 0
+        out = fn()
+        launches[name] = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+        return out
+
+    def det_run(name, *extra):
+        return counted(name, lambda: stream_det.main(
+            [*common, "--out-dir", str(out_dir / name), "--overwrite", *extra],
+            load_frame=synth.frame))
+
+    det_run("wall")
+    zoo = out_dir / "zoo.pkl"
+    add_to_runtime_zoo(str(out_dir / "wall" / "time_info.pkl"), str(zoo), "wall")
+    sim = ["--sim-zoo", str(zoo), "--sim-name", "wall"]
+    det_run("sim_zoo", *sim)
+    det_run("sim_zoo_again", *sim)
+    inf = det_run("infinite", *sim, "--infinite")
+    off = counted("offline_det", lambda: offline_det.main(
+        [*common, "--out-dir", str(out_dir / "offline"), "--no-eval"], load_frame=synth.frame))
+
+    for name in ("wall", "sim_zoo"):
+        runs[name] = run_summary(out_dir / name, n_seqs)
+        called = launches[name]["nms"] - stream_det.WARMUP_FRAMES
+        check(launches[name]["nms"] == launches[name]["preproc"]
+              and runs[name]["processed"] <= called <= runs[name]["processed"] + n_seqs,
+              f"stream_det {name}: {launches[name]} kernel launches after "
+              f"{stream_det.WARMUP_FRAMES} warm-up frames for {runs[name]['processed']} "
+              "results")
+        runs[name]["calls_after_warmup"] = called
+    check(same_runs(out_dir / "sim_zoo", out_dir / "sim_zoo_again", n_seqs),
+          "two --sim-zoo runs of the same zoo wrote different pkls")
+    n_inf = sum(len(r["timestamps"]) for r in inf.values())
+    check(launches["infinite"] == {"nms": stream_det.WARMUP_FRAMES + n_frames,
+                                   "preproc": stream_det.WARMUP_FRAMES + n_frames},
+          f"--infinite: {launches['infinite']} kernel launches for {n_frames} frames")
+    check(launches["offline_det"] == {"nms": n_frames, "preproc": n_frames},
+          f"offline_det: {launches['offline_det']} kernel launches for {n_frames} frames")
+    check({r["image_id"] for r in off["results_ccf"]} == set(range(n_frames)),
+          "offline_det left a frame without detections")
+
+    # pseudo ground truth: the every-frame run's top tenth of scores
+    score_th = float(np.percentile([d["score"] for d in off["results_ccf"]],
+                                   PGT_SCORE_PERCENTILE))
+    pgt = out_dir / "pseudo_gt.json"
+    pseudo_gt_from_detections(synth.data, off["results_ccf"], score_th, out_path=str(pgt))
+    scores = {}
+    for name in ("wall", "sim_zoo", "infinite"):
+        summary, assoc = streaming_eval.main(["--annot-path", str(pgt), "--result-dir",
+                                              str(out_dir / name), "--overwrite"])
+        scores[name] = {**stats_of(summary), "association": assoc}
+        check(np.isfinite(scores[name]["sAP"]), f"{name}: sAP not finite")
+    fk = forecast_kf.main(["--annot-path", str(pgt), "--in-dir", str(out_dir / "wall"),
+                           "--out-dir", str(out_dir / "forecast")])
+    scores["forecast_kf"] = {**stats_of(fk["summary"]), "association": fk["assoc"]}
+    dirs = [str(out_dir / d) for d in ("wall", "sim_zoo", "infinite", "forecast")]
+    rows = collect_summary.main([*dirs, "--out", str(out_dir / "summary.csv")])
+    check(len(rows) == len(dirs) and [r["name"] for r in rows] ==
+          ["wall", "sim_zoo", "infinite", "forecast"],
+          f"collect_summary: {len(rows)} rows for {len(dirs)} directories")
+    emit("stream_cli", config=EVAL_CONFIG, model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT),
+         dtype="bfloat16", device_preproc=True,
+         fixture=f"{n_seqs}x{n_frames // n_seqs} frames {synth.backgrounds[0].shape[0]}x"
+                 f"{synth.backgrounds[0].shape[1]} synthetic, in memory",
+         warmup_frames=stream_det.WARMUP_FRAMES, runs=runs, infinite_results=n_inf,
+         sim_zoo_runs_equal=True, pseudo_gt_score_th=score_th,
+         offline_detections=len(off["results_ccf"]), scores=scores,
+         csv_rows=len(rows), launches=launches)
+    return launches
+
+
+def phase_streamer(synth) -> dict:
+    """The detector in a spawned child (``stream/forecast.py::Streamer``):
+    StreamYOLO-l at 600x960, bf16, ``device_preproc``, built on the card in
+    the child. Frames of one 30-frame sequence are offered at 30 fps (a
+    frame the busy detector cannot take is dropped) while the parent folds
+    the results into the Kalman forecaster and forecasts half a frame ahead
+    at every frame; results must come back in order, and the child's B1
+    and B2 launches (returned in the parse tuple's 4th slot) must equal the
+    results. A frame of the wrong size makes the child raise, which must
+    surface as ``RuntimeError``. Then, in float32 with cuDNN off in both
+    processes, the child's rows of the first ``STREAMER_EXACT_FRAMES``
+    frames must equal an in-process detector's."""
+    import torch
+
+    from streamyolo_torch.stream import Streamer
+
+    frames = [synth.frame(img) for img in synth.data["images"] if img["sid"] == 0]
+    h, w = frames[0].shape[:2]
+    got, forecast_boxes, submitted = [], [], 0
+    t_start = time.perf_counter()
+    with Streamer(functools.partial(streamer_detector, False, True)) as s:
+        startup_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        for fidx, frame in enumerate(frames):
+            while time.perf_counter() - t0 < fidx / 30.0:
+                done = s.poll(timeout=0.001)
+                if done is not None:
+                    got.append(done)
+            done = s.poll()
+            if done is not None:
+                got.append(done)
+            submitted += s.submit(fidx, frame, fidx / 30.0)
+            forecast_boxes.append(len(s.forecast((fidx + 0.5) / 30.0, w, h)[0]))
+        while len(got) < submitted:
+            done = s.poll(timeout=1.0)
+            if done is not None:
+                got.append(done)
+        child_launches = s.last_result[3]
+        check(got == sorted(set(got)) and len(got) == submitted > 1,
+              f"Streamer results out of order or lost: {got} of {submitted} submitted")
+        check(child_launches == {"nms": len(got), "preproc": len(got)},
+              f"Streamer child: {child_launches} kernel launches for {len(got)} results")
+        check(max(forecast_boxes) > 0, "the forecaster never produced a box")
+        s.submit(len(frames), np.zeros((100, 100, 3), np.uint8), 1.0)
+        try:
+            for _ in range(120):
+                s.poll(timeout=0.5)
+            raised = False
+        except RuntimeError as e:
+            raised = "device_preproc expects raw" in str(e)
+        check(raised, "the child's exception did not surface as RuntimeError")
+
+    # float32, cuDNN off in both processes: the same rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        mine = serving_detector(True)
+        mine.warmup(2)
+        equal = []
+        with Streamer(functools.partial(streamer_detector, True, False)) as s:
+            for fidx in range(STREAMER_EXACT_FRAMES):
+                s.submit(fidx, frames[fidx], fidx / 30.0)
+                back = None
+                for _ in range(600):
+                    back = s.poll(timeout=0.1)
+                    if back is not None:
+                        break
+                check(back == fidx, f"fp32 Streamer: frame {fidx} came back as {back}")
+                want = mine(frames[fidx])
+                equal.append(all(np.array_equal(a, b) for a, b in zip(s.last_result[:3],
+                                                                       want[:3])))
+        del mine
+    check(all(equal), f"fp32, cuDNN off: the child's rows differ from the parent's: {equal}")
+    emit("streamer", model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
+         device_preproc=True, frames_offered=len(frames), submitted=submitted,
+         results=len(got), result_fidx=got, forecast_boxes_max=max(forecast_boxes),
+         child_startup_s=startup_s, child_exception_surfaced=True,
+         fp32_cudnn_off_frames_equal=len(equal), launches=child_launches)
+    torch.cuda.empty_cache()
+    return child_launches
+
+
+def row_gaps(rows, rows_ref) -> dict:
+    """How far two evaluations' COCO rows lie apart, per (image, class)
+    cell, in each cell's score order: rows equal, cells whose row count
+    differs (a box crossed the confidence threshold or an NMS decision
+    flipped), and the largest box and score gaps between the rows of cells
+    with equal counts."""
+    def cells(rs):
+        out = {}
+        for r in rs:
+            out.setdefault((r["image_id"], r["category_id"]), []).append(r)
+        return out
+
+    a, b = cells(rows), cells(rows_ref)
+    out = {"rows": len(rows), "rows_ref": len(rows_ref), "rows_equal": 0, "cells": len(b),
+           "cells_other_count": 0, "box_max_abs": 0.0, "score_max_abs": 0.0}
+    for key in set(a) | set(b):
+        x, y = a.get(key, []), b.get(key, [])
+        if len(x) != len(y):
+            out["cells_other_count"] += 1
+            continue
+        for r, q in zip(x, y):
+            out["rows_equal"] += r == q
+            out["box_max_abs"] = max(out["box_max_abs"], float(
+                np.abs(np.subtract(r["bbox"], q["bbox"])).max()))
+            out["score_max_abs"] = max(out["score_max_abs"], abs(r["score"] - q["score"]))
+    return out
+
+
+E2E_CONFIG = '''"""StreamYOLO-s at depth 0.33, width 0.25, 150x240: the tiny model that
+chip_smoke.py trains on the synthetic video."""
+
+from streamyolo_torch.cfgs.s_s50_onex_dfp_tal_flip import Exp as SmallExp
+
+
+class Exp(SmallExp):
+    def __init__(self):
+        super().__init__()
+        self.depth = 0.33
+        self.width = 0.25
+        self.input_size = (150, 240)
+        self.test_size = (150, 240)
+        self.random_size = None
+'''
+
+
+def phase_trained_e2e(out_dir: Path) -> dict:
+    """Train a tiny StreamYOLO with the port and score it five ways (the
+    done criterion of ROADMAP item 9). The synthetic video at its defaults
+    (4 x 75 frames, raw 300x480, 150x240 model input) with objects of 1/8 to
+    1/4 of the frame is the train AND the val split (``make_synthetic_argoverse``
+    writes every split from one video): this shows that the pipeline learns
+    and keeps its accuracy through streaming, not that it generalises.
+    ``tools/train.py`` trains ``E2E_EPOCHS`` epochs at batch ``E2E_BATCH``
+    under bf16 autocast (SGD, LR ``E2E_LR_PER_IMG`` per image, a one-epoch
+    warmup and a cosine to 0.05 of it; no per-epoch eval: (a) scores the
+    EMA). Then, on the EMA weights: (a) ``tools/eval.py`` (dedup, and
+    ``--no-dedup`` under the eval CLI's own cuDNN settings), (b)
+    ``stream_det`` under the wall clock with ``--device-preproc`` and
+    ``streaming_eval`` against the annotations, (c) ``--sim-zoo`` at (b)'s
+    measured runtimes, (d) at ``E2E_SLOW_S``, (e) ``forecast_kf`` on (d).
+    Checks: (a) AP50 >= 20; (d) sAP < (c) sAP; (b) and (c) within 2 sAP."""
+    import torch
+
+    from streamyolo_torch.data import SyntheticArgoverse
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import add_to_runtime_zoo
+    from streamyolo_torch.tools import eval as eval_tool
+    from streamyolo_torch.tools import forecast_kf, stream_det, streaming_eval
+    from streamyolo_torch.tools import train as train_tool
+
+    synth = SyntheticArgoverse(seq_lens=(E2E_FRAMES,) * E2E_SEQS, size=E2E_RAW, seed=SEED,
+                               obj_frac=E2E_OBJ_FRAC)
+    ann_dir = out_dir / "Argoverse-HD" / "annotations"
+    ann_dir.mkdir(parents=True, exist_ok=True)
+    for split in ("train.json", "val.json"):
+        (ann_dir / split).write_text(json.dumps(synth.data))
+    annot = str(ann_dir / "val.json")
+    cfg = out_dir / "tiny_s.py"
+    cfg.write_text(E2E_CONFIG)
+    data_opts = ["data_dir", str(out_dir), "output_dir", str(out_dir / "runs")]
+    launches = {}
+
+    def counted(name, fn):
+        nms_keep.launches = 0
+        downsample2x.launches = 0
+        out = fn()
+        launches[name] = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+        return out
+
+    t0 = time.perf_counter()
+    trainer = counted("train", lambda: train_tool.main(
+        ["-f", str(cfg), "-b", str(E2E_BATCH), "--fp16", "-expn", "tiny", *data_opts,
+         "max_epoch", str(E2E_EPOCHS), "no_aug_epochs", str(E2E_EPOCHS),
+         "eval_interval", str(E2E_EPOCHS + 1), "warmup_epochs", "1", "scheduler", "warmcos",
+         "basic_lr_per_img", str(E2E_LR_PER_IMG), "data_num_workers", str(E2E_WORKERS),
+         "save_history_ckpt", "False", "print_interval", "9", "seed", str(SEED)],
+        load_frame=synth.frame))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = trainer.state.step
+    losses = [float(v) for v in trainer.meter["total_loss"]._deque]
+    warm_ms = [ms for _, ms, _ in trainer.step_log[1:] if ms is not None]
+    del trainer
+    ckpt = str(out_dir / "runs" / "tiny" / "latest_ckpt.pth")
+
+    # (a) the offline pseudo-streaming eval, dedup and dual-frame, under the
+    # eval CLI's own cuDNN settings (benchmark on)
+    offline = {}
+    for name, extra in (("dedup", []), ("no_dedup", ["--no-dedup"])):
+        res = counted(f"eval_{name}", lambda extra=extra: eval_tool.main(
+            ["-f", str(cfg), "-c", ckpt, "-b", str(E2E_EVAL_BATCH), "--fp16", "-expn",
+             f"eval_{name}", *extra, *data_opts], load_frame=synth.frame))
+        offline[name] = res
+    rows_moved = row_gaps(offline["dedup"]["rows"], offline["no_dedup"]["rows"])
+    a = {k: {"AP": 100 * offline[k]["ap"], "AP50": 100 * offline[k]["ap50"],
+             "rows": len(offline[k]["rows"])} for k in offline}
+
+    # (b)-(d) the real-time CLI on the same weights, (e) the forecast
+    common = ["--data-root", str(out_dir), "--annot-path", annot, "-f", str(cfg), "-c", ckpt,
+              "--device-preproc", "--overwrite"]
+    zoo = out_dir / "zoo.pkl"
+    with open(zoo, "wb") as f:
+        pickle.dump({"slow": {"type": "empirical", "samples": [E2E_SLOW_S]}}, f)
+    scored = {}
+
+    def scored_run(name, *extra):
+        run_dir = out_dir / name
+        counted(name, lambda: stream_det.main([*common, "--out-dir", str(run_dir), *extra],
+                                              load_frame=synth.frame))
+        summary, assoc = streaming_eval.main(["--annot-path", annot, "--result-dir",
+                                              str(run_dir), "--overwrite"])
+        scored[name] = {**stats_of(summary), **run_summary(run_dir, E2E_SEQS),
+                        "association": assoc}
+
+    scored_run("wall")
+    add_to_runtime_zoo(str(out_dir / "wall" / "time_info.pkl"), str(zoo), "measured")
+    scored_run("sim_measured", "--sim-zoo", str(zoo), "--sim-name", "measured")
+    scored_run("sim_45ms", "--sim-zoo", str(zoo), "--sim-name", "slow")
+    fk = forecast_kf.main(["--annot-path", annot, "--in-dir", str(out_dir / "sim_45ms"),
+                           "--out-dir", str(out_dir / "forecast_45ms")])
+    scored["forecast_45ms"] = {**stats_of(fk["summary"]), "association": fk["assoc"]}
+
+    n_frames = E2E_SEQS * E2E_FRAMES
+    table = [{"run": "(a) tools/eval.py, dedup", "sAP": a["dedup"]["AP"],
+              "sAP50": a["dedup"]["AP50"], "frames": f"{n_frames}/{n_frames}"}]
+    for key, label in (("wall", "(b) stream_det, wall clock"),
+                       ("sim_measured", "(c) --sim-zoo at the measured step"),
+                       ("sim_45ms", "(d) --sim-zoo at 45 ms"),
+                       ("forecast_45ms", "(e) forecast_kf on (d)")):
+        r = scored[key]
+        frames = r.get("processed", scored["sim_45ms"]["processed"])  # (e) forecasts (d)
+        table.append({"run": label, "sAP": r["sAP"], "sAP50": r["sAP50"],
+                      "frames": f"{frames}/{n_frames}"})
+    emit("trained_e2e", config="s_s50_onex_dfp_tal_flip depth 0.33 width 0.25, 150x240",
+         fixture=f"{E2E_SEQS}x{E2E_FRAMES} frames {E2E_RAW[0]}x{E2E_RAW[1]} synthetic, "
+                 f"obj_frac {list(E2E_OBJ_FRAC)}, train = val",
+         recipe={"batch": E2E_BATCH, "epochs": E2E_EPOCHS, "steps": steps,
+                 "lr": E2E_LR_PER_IMG * E2E_BATCH, "scheduler": "warmcos, 1 warmup epoch",
+                 "fp16": "bf16 autocast", "workers": E2E_WORKERS,
+                 "eval_batch": E2E_EVAL_BATCH},
+         train_s=train_s, train_step_ms_median=statistics.median(warm_ms) if warm_ms else None,
+         losses_last_window=losses, table=table,
+         offline_eval=a, dedup_vs_no_dedup_rows_cudnn=rows_moved, scores=scored,
+         launches=launches)
+    check(all(np.isfinite(losses)), f"trained_e2e: a loss is not finite: {losses}")
+    check(a["dedup"]["AP50"] >= 20.0, f"trained_e2e: offline AP50 {a['dedup']['AP50']} < 20")
+    check(abs(a["dedup"]["AP"] - a["no_dedup"]["AP"]) <= 0.5,
+          f"trained_e2e: dedup and dual-frame AP differ: {a}")
+    check(scored["sim_45ms"]["sAP"] < scored["sim_measured"]["sAP"],
+          "trained_e2e: sAP at 45 ms is not below sAP at the measured step")
+    check(abs(scored["wall"]["sAP"] - scored["sim_measured"]["sAP"]) <= 2.0,
+          "trained_e2e: wall-clock and simulated sAP differ by more than 2 points")
+    for name in ("wall", "sim_measured", "sim_45ms"):
+        called = launches[name]["nms"] - stream_det.WARMUP_FRAMES
+        check(launches[name]["nms"] == launches[name]["preproc"]
+              and scored[name]["processed"] <= called <= scored[name]["processed"] + E2E_SEQS,
+              f"trained_e2e {name}: {launches[name]} kernel launches for "
+              f"{scored[name]['processed']} results")
+    return launches
+
+
+def new_path_launches(kernel: str, cli: dict, streamer: dict, trained: dict) -> dict:
+    """``launches_by_path`` entries of the streaming CLI, the Streamer's
+    child and the trained model's runs for one kernel (``nms``, ``preproc``)."""
+    out = {f"stream_cli_{k}": v[kernel] for k, v in cli.items()}
+    out["streamer_child"] = streamer[kernel]
+    out.update({f"trained_e2e_{k}": v[kernel] for k, v in trained.items()})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1158,7 +1662,13 @@ def main() -> int:
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_rehearsal"
     rehearsal_det, synth, rehearsal_launches = phase_sap_rehearsal(str(out_dir))
     wallclock_launches = phase_wallclock_stream(rehearsal_det, synth)
-    del rehearsal_det, synth
+    del rehearsal_det
+    root = Path(__file__).resolve().parent / "build"
+
+    # 7b. the real-time CLI and the Streamer on the same frames
+    cli = phase_stream_cli(root / "chip_smoke_stream_cli", synth)
+    streamer = phase_streamer(synth)
+    del synth
 
     # Kernel times two ways: one call between two events after a sleep
     # (time_cuda, device_only) and a run of calls back to back divided by
@@ -1174,6 +1684,9 @@ def main() -> int:
 
     # 9. training through tools/train.py (B1 in the per-epoch EMA eval)
     train = phase_train(Path(__file__).resolve().parent / "build" / "chip_smoke_train")
+
+    # 10. a tiny model trained by the port, scored offline, streaming and forecast
+    trained = phase_trained_e2e(root / "chip_smoke_trained")
 
     # B1 at the serving shapes: the candidates of a real steady step
     with torch.inference_mode():
@@ -1234,7 +1747,8 @@ def main() -> int:
                               "wallclock_stream": wallclock_launches["nms"],
                               "offline_eval_dedup": offline["launches"]["dedup"]["nms"],
                               "offline_eval_no_dedup": offline["launches"]["no_dedup"]["nms"],
-                              "train": train["launches"]["nms"]},
+                              "train": train["launches"]["nms"],
+                              **new_path_launches("nms", cli, streamer, trained)},
          "eval_k1000": offline["times"],
          "batch8": {"shape": f"B=8 K={b8_boxes.shape[1]} valid={int(b8_valid.sum())}, "
                              "candidates of a real multi-stream step",
@@ -1256,7 +1770,8 @@ def main() -> int:
                               "offline_eval_dedup": offline["launches"]["dedup"]["preproc"],
                               "offline_eval_no_dedup":
                                   offline["launches"]["no_dedup"]["preproc"],
-                              "train": train["launches"]["preproc"]}},
+                              "train": train["launches"]["preproc"],
+                              **new_path_launches("preproc", cli, streamer, trained)}},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,8 @@ half-written file. A failed build raises ``NativeBuildError`` with the
 compiler's output.
 
 Bound here: ``cocoeval_run`` (the whole COCO evaluate + accumulate pass, for
-``eval/cocoeval_ext.py::COCOeval_opt``).
+``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the greedy
+track association of ``stream/track.py``) and ``bbox_iou_ltwh``.
 """
 
 from __future__ import annotations
@@ -83,6 +84,17 @@ def load() -> ctypes.CDLL:
                 _f64p, _f64p, _f64p,        # precision, recall, scores
             ]
             lib.cocoeval_run.restype = None
+            lib.iou_assoc_greedy.argtypes = [
+                _f64p, ctypes.c_int64, ctypes.c_int64,
+                _i64p, _i64p, ctypes.c_double,
+                _i64p, _i64p, _i64p,
+                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ]
+            lib.iou_assoc_greedy.restype = None
+            lib.bbox_iou_ltwh.argtypes = [
+                _f64p, ctypes.c_int64, _f64p, ctypes.c_int64, _u8p, _f64p,
+            ]
+            lib.bbox_iou_ltwh.restype = None
             _lib = lib
         return _lib
 
@@ -119,3 +131,42 @@ def cocoeval_run_cpp(
         precision.reshape(-1), recall.reshape(-1), scores.reshape(-1),
     )
     return precision, recall, scores
+
+
+def iou_assoc_greedy_cpp(ious: np.ndarray, labels1: np.ndarray, labels2: np.ndarray,
+                         match_iou_th: float):
+    """Greedy association on a precomputed [m, n] IoU matrix: each new
+    detection j in turn claims the free previous box of its label with the
+    highest IoU >= ``match_iou_th`` (ties to the highest row). Returns
+    (matched1, matched2, unmatched2) index lists."""
+    lib = load()
+    ious = np.ascontiguousarray(ious, np.float64)
+    m, n = ious.shape
+    labels1 = np.ascontiguousarray(labels1, np.int64).reshape(-1)
+    labels2 = np.ascontiguousarray(labels2, np.int64).reshape(-1)
+    if labels1.shape != (m,) or labels2.shape != (n,):
+        raise ValueError(f"labels {labels1.shape}, {labels2.shape} do not fit ious {ious.shape}")
+    matched1 = np.zeros(n, np.int64)
+    matched2 = np.zeros(n, np.int64)
+    unmatched2 = np.zeros(n, np.int64)
+    n_matched = ctypes.c_int64(0)
+    n_unmatched2 = ctypes.c_int64(0)
+    lib.iou_assoc_greedy(ious, m, n, labels1, labels2, float(match_iou_th),
+                         matched1, matched2, unmatched2,
+                         ctypes.byref(n_matched), ctypes.byref(n_unmatched2))
+    nm, nu = n_matched.value, n_unmatched2.value
+    return matched1[:nm].tolist(), matched2[:nm].tolist(), unmatched2[:nu].tolist()
+
+
+def bbox_iou_ltwh_cpp(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
+    """[n, 4] x [m, 4] ltwh boxes -> [n, m] IoU (intersection over the dt
+    area for a crowd gt)."""
+    lib = load()
+    dt = np.ascontiguousarray(np.asarray(dt, np.float64).reshape(-1, 4))
+    gt = np.ascontiguousarray(np.asarray(gt, np.float64).reshape(-1, 4))
+    iscrowd = np.ascontiguousarray(iscrowd, np.uint8).reshape(-1)
+    if iscrowd.shape != (len(gt),):
+        raise ValueError(f"iscrowd {iscrowd.shape} does not fit {len(gt)} gt boxes")
+    out = np.zeros((len(dt), len(gt)), np.float64)
+    lib.bbox_iou_ltwh(dt, len(dt), gt, len(gt), iscrowd, out)
+    return out

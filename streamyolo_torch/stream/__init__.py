@@ -1,4 +1,11 @@
 from streamyolo_torch.stream.clock import SimClock, WallClock
+from streamyolo_torch.stream.forecast import (
+    KFForecaster,
+    Streamer,
+    bbox_extrap_lin,
+    bbox_extrap_quad,
+    extrap_clean_up,
+)
 from streamyolo_torch.stream.online import (
     CUDAStreamDetector,
     MultiStreamDetector,
@@ -21,6 +28,13 @@ from streamyolo_torch.stream.runtime_dist import (
     dist_from_dict,
     dist_from_zoo,
 )
+from streamyolo_torch.stream.schedule_sim import POLICIES, sim
+from streamyolo_torch.stream.track import (
+    iou_assoc,
+    iou_assoc_no_tracks,
+    iou_ltwh,
+    track_based_shuffle,
+)
 
 __all__ = [
     "SimClock", "WallClock", "CUDAStreamDetector", "MultiStreamDetector",
@@ -28,4 +42,7 @@ __all__ = [
     "stream_sequence", "stream_sequence_infinite", "detections_for_image",
     "eval_ccf", "ltrb2ltwh", "pair_streaming_results", "streaming_eval",
     "Empirical", "add_to_runtime_zoo", "dist_from_dict", "dist_from_zoo",
+    "POLICIES", "sim", "KFForecaster", "Streamer", "bbox_extrap_lin",
+    "bbox_extrap_quad", "extrap_clean_up", "iou_assoc", "iou_assoc_no_tracks",
+    "iou_ltwh", "track_based_shuffle",
 ]

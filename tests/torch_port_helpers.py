@@ -93,3 +93,44 @@ def write_textured_argoverse(root, seq_lens):
     for path in sorted((root / "Argoverse-1.1" / "tracking").rglob("*.jpg")):
         cv2.imwrite(str(path), rng.randint(0, 256, (FAKE_H, FAKE_W, 3), np.uint8))
     return str(root)
+
+
+def make_toy_detector():
+    """Makes a ``Streamer``'s detector (top-level, so that a spawned child
+    imports it by reference): one fixed 10x8 box at x = frame[0][0]."""
+
+    def detect(frame):
+        x = float(frame[0][0])
+        return ([[x, 20.0, x + 10.0, 28.0]], [0.9], [2])
+
+    return detect
+
+
+def make_failing_detector():
+    """Makes a ``Streamer``'s detector that raises on its first frame."""
+
+    def detect(frame):
+        raise ValueError(f"toy detector refuses frame {frame!r}")
+
+    return detect
+
+
+def make_cuda_detector():
+    """Makes a ``Streamer``'s detector: a bf16 ``CUDAStreamDetector``
+    (``tiny_model``, 128x192, ``device_preproc``) on the card in the child.
+    Its ``detect`` returns the child's (B1, B2) launch counts since the
+    build in the parse tuple's 4th slot."""
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import CUDAStreamDetector
+
+    det = CUDAStreamDetector(tiny_model(torch.bfloat16), input_size=(128, 192),
+                             device_preproc=True)
+    nms_keep.launches = 0
+    downsample2x.launches = 0
+
+    def detect(frame):
+        bboxes, scores, labels, _ = det(frame)
+        return bboxes, scores, labels, (nms_keep.launches, downsample2x.launches)
+
+    return detect
