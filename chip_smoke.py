@@ -33,8 +33,12 @@ stream_det.py`` under the wall clock, with ``--sim-zoo`` and with
 ``--infinite``, then ``offline_det``, ``streaming_eval``, ``forecast_kf`` and
 ``collect_summary``) at full width on the rehearsal's frames, serves the
 same frames through a ``Streamer`` whose detector lives in a spawned child
-on the card, and last trains a tiny StreamYOLO with the port on the
-synthetic video and scores it offline, streaming under the wall clock, in
+on the card, quantizes StreamYOLO-l to int8 (``streamyolo_torch/quant``:
+calibration, BN fold, the int8 conv kernel ``csrc/int8_conv.cu`` held bit
+for bit against its plain version at every conv shape of the step) and
+serves it, and last trains a tiny StreamYOLO with the port on the synthetic
+video and scores it offline (float and int8; the dedup eval's rows against
+the dual-frame eval's, box-matched), streaming under the wall clock, in
 simulation at the measured step and at 45 ms, and forecast. Each phase prints
 one JSON line; the line before the last lists the kernels, with their
 launches on every path, and the last line is ``{"ok": true, "device":
@@ -87,9 +91,24 @@ E2E_SEQS, E2E_FRAMES, E2E_RAW, E2E_OBJ_FRAC = 4, 75, (300, 480), (1 / 8, 1 / 4)
 # the main process costs a few ms
 E2E_BATCH, E2E_EPOCHS, E2E_LR_PER_IMG, E2E_WORKERS = 16, 22, 0.02 / 16, 0
 E2E_EVAL_BATCH = 64  # the eval CLI's default batch: few batches, few cuDNN autotunes
+E2E_CALIB_BATCHES = 2  # the int8 eval's calibration batches
+# ROADMAP C.1: dedup rows without a box-matched partner in the --no-dedup
+# rows (and the reverse), at most this share of both runs' rows
+E2E_UNMATCHED_MAX = 0.01
 E2E_SLOW_S = 0.045  # a latency that misses frames at 30 fps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense, published
+# int8 conv: per input value a divide, a round and two clamps (float32); per
+# output value a convert and a multiply
+INT8_QUANT_OPS, INT8_DEQUANT_OPS = 4, 2
+INT8_CALIB_FRAMES = 4  # int8 phase: off_pipe calibration frames
+INT8_HEAVIEST = 3  # shapes timed alone and also checked in float32
+# the int8 float32 step, card against CPU: the fp32 bound of the float path
+# (an int8 code flips where the two devices' float32 BN / SiLU straddle a
+# rounding boundary; the CPU tests measured 2.9e-6 relative on boxes and
+# 3e-7 on scores for the tiny model against the JAX package)
+INT8_BOX_REL, INT8_PROB_ABS = 1e-3, 1e-4
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
 NMS_OPS_PER_IOU = 14
 # per output pixel and channel: 3 adds, 1 mul, 1 add, floor, 2 clamps
@@ -207,8 +226,12 @@ def iou_evaluations(boxes, valid, thr) -> int:
     return total
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, int8_ops: float = 0.0):
+    """The card's least time (ms) for ``n_bytes`` of traffic, ``n_ops``
+    float32 operations and ``int8_ops`` int8 tensor-core operations, and
+    which of bytes and operations sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_OPS_PER_S + int8_ops / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -272,7 +295,9 @@ def phase_multi_stream(model, m32, pool, kw) -> dict:
     a fresh star step and the other rows against their carry (bit for bit:
     same batch, same programs), the card's postprocess against the plain one
     on the same predictions, and one row of an fp32 multi-stream run
-    against ``CUDAStreamDetector`` fed the same frames (TF32 off)."""
+    against ``CUDAStreamDetector`` fed the same frames (TF32 off). Measures,
+    without a bound (ROADMAP C.3), stream 0's bf16 rows against a bf16
+    ``CUDAStreamDetector`` fed its frames, box-matched."""
     import torch
 
     from streamyolo_torch.ops.nms import postprocess_fixed, select_candidates
@@ -289,6 +314,7 @@ def phase_multi_stream(model, m32, pool, kw) -> dict:
     nms_keep.launches = 0
     multi.reset()
     restart = {}
+    stream0 = []
     for t in range(1 + MULTI_STEPS):
         frames = stream_batch(pool, t, MULTI_N)
         if t == MULTI_RESET_AT:
@@ -301,6 +327,7 @@ def phase_multi_stream(model, m32, pool, kw) -> dict:
         rows = multi.last_rows
         check(rows.shape == (MULTI_N, TOPK, 8) and np.isfinite(rows).all(),
               f"multi-stream step {t}: rows not a finite [{MULTI_N}, {TOPK}, 8] block")
+        stream0 += det_rows(rows[0], t)
         if t == 0:
             ptrs = [b.data_ptr() for b in multi._buffer]
             check(all(b.is_contiguous(memory_format=torch.channels_last)
@@ -338,6 +365,15 @@ def phase_multi_stream(model, m32, pool, kw) -> dict:
     check(not multi._pending_star.any(), "pending stars were not cleared")
     kept = [int((multi.last_rows[i][:, 7] > 0.5).sum()) for i in range(MULTI_N)]
 
+    # ROADMAP C.3, measured without a bound: stream 0's bf16 rows at N = 8
+    # against a single-stream bf16 detector fed the same frames
+    single16 = CUDAStreamDetector(model, device=dev, **kw)
+    single_rows = []
+    for t in range(1 + MULTI_STEPS):
+        single16(stream_batch(pool, t, 1)[0], preprocessed=True)
+        single_rows += det_rows(single16.last_rows, t)
+    c3 = matched_rows(stream0, single_rows)
+
     # fp32: row 5 of the batched detector against the single-stream one
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -363,7 +399,8 @@ def phase_multi_stream(model, m32, pool, kw) -> dict:
          streams=MULTI_N, steps=1 + MULTI_STEPS, b1_launches=launches,
          b1_launches_per_step=launches / (1 + MULTI_STEPS), restart=restart,
          buffer_data_ptr_stable=True, kept_last_step=kept,
-         fp32_row_vs_single_stream=dict(row=row, steps=len(errs), **fp32))
+         fp32_row_vs_single_stream=dict(row=row, steps=len(errs), **fp32),
+         bf16_stream0_vs_single_stream_matched=c3)
     return {"launches": launches, "nms_boxes": nms_boxes, "nms_valid": nms_valid}
 
 
@@ -528,10 +565,11 @@ def phase_offline_eval(out_dir: Path, floor: dict) -> dict:
     forward with its first-batch guard armed, then the dual-frame forward
     (``--no-dedup``). Checks the guard, one B1 launch per batch, B1 bit-exact
     at K = 1000 on the eval's own candidates (B = 8 and B = 64), the two
-    forwards' AP within 0.5 points and, run again with cuDNN off, their
-    COCO rows equal, and fp32 ``seq`` predictions on the card against the
-    CPU's. Times each forward (the evaluator's meters on a
-    second, warm run without the guard) and B1 at K = 1000."""
+    forwards' AP within 0.5 points and their COCO rows equal (both run
+    cuDNN off on a card), and fp32 ``seq`` predictions on the card against
+    the CPU's. Times each forward (the evaluator's meters on a second, warm
+    run without the guard), the dual-frame forward with and without cuDNN,
+    and B1 at K = 1000."""
     import torch
 
     from streamyolo_torch.data import SyntheticArgoverse
@@ -597,19 +635,12 @@ def phase_offline_eval(out_dir: Path, floor: dict) -> dict:
         check(abs(runs["dedup"][k] - runs["no_dedup"][k]) <= 0.5,
               f"dedup and dual-frame {k} differ: {runs['dedup'][k]} vs {runs['no_dedup'][k]}")
     # random weights score AP = 0.0 against the synthetic boxes, so the AP
-    # check cannot fail. Every batch's COCO rows must be equal when both
-    # forwards run PyTorch's own convolution (cuDNN off: one GEMM per image,
-    # so an image rounds alike at every batch row; cuDNN's split-K kernels
-    # do not, and the random trunk carries that far)
-    rows_cudnn_equal = rows_of["dedup"] == rows_of["no_dedup"]
-    with torch.backends.cudnn.flags(enabled=False):
-        for name in ("dedup", "no_dedup"):
-            evaluator = exp.get_evaluator(EVAL_BATCH, load_frame=synth.frame)
-            fwd = (exp.get_dedup_forward_fn(model, evaluator.dataset) if name == "dedup"
-                   else exp.get_forward_fn(model))
-            _, rows_of[name] = evaluator.evaluate(fwd, return_outputs=True)
+    # check cannot fail. Every batch's COCO rows must be equal: both eval
+    # forwards run PyTorch's own convolution on the card (cuDNN off: one GEMM
+    # per image, so an image rounds alike at every batch row; cuDNN's
+    # split-K kernels do not, and the random trunk carries that far)
     check(rows_of["dedup"] == rows_of["no_dedup"],
-          "with cuDNN off the dedup forward's COCO rows differ from the dual-frame forward's")
+          "the dedup forward's COCO rows differ from the dual-frame forward's")
 
     # the eval's own candidates: the first batch (B = 8), and 64 samples of
     # the fixture (cycled) through the dual-frame forward (B = 64)
@@ -618,6 +649,15 @@ def phase_offline_eval(out_dir: Path, floor: dict) -> dict:
     imgs8, _, _, ids8 = _numpy_collate(samples[:EVAL_BATCH])
     imgs64 = np.stack([samples[i % n_images][0] for i in range(EVAL_BIG_BATCH)])
     off = exp.get_forward_fn(model)
+    # what running the eval's convolutions without cuDNN costs: the
+    # dual-frame forward at B = 8, ms per image, cuDNN on and off
+    x8 = torch.from_numpy(imgs8).cuda()
+    cudnn_cost = {}
+    with torch.inference_mode():
+        for name, on in (("cudnn_ms_per_image", True), ("cudnn_off_ms_per_image", False)):
+            with torch.backends.cudnn.flags(enabled=on, benchmark=on):
+                cudnn_cost[name] = time_cuda(lambda: model(x8, mode="off_pipe"),
+                                             iters=5) / EVAL_BATCH
     cands = {}
     with torch.inference_mode():
         for b, imgs in ((EVAL_BATCH, imgs8), (EVAL_BIG_BATCH, imgs64)):
@@ -669,7 +709,7 @@ def phase_offline_eval(out_dir: Path, floor: dict) -> dict:
     emit("offline_eval", config=EVAL_CONFIG, model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT),
          dtype="bfloat16", fixture=f"{EVAL_SEQS}x{EVAL_FRAMES} frames {raw_size[0]}x{raw_size[1]} "
          "synthetic, in memory", batch=EVAL_BATCH, pre_nms_topk=EVAL_TOPK, runs=runs,
-         rows_equal_cudnn_off=True, rows_equal_cudnn=rows_cudnn_equal,
+         rows_equal=True, dual_frame_forward_b8=cudnn_cost,
          b1_exact_entries=checked, fp32_guard_b8=fp32_guard,
          fp32_seq_card_vs_cpu=seq_vs_cpu)
     return {"launches": launches, "times": times}
@@ -832,15 +872,14 @@ def phase_train(out_dir: Path) -> dict:
     del resumed
 
     # the eval CLI on the checkpoint against the trainer's own evaluator on
-    # its in-memory EMA model, both on PyTorch's own convolution (cuDNN off:
-    # an image then rounds alike at every batch row; see the dedup guard in
-    # eval/seq_forward.py)
-    with torch.backends.cudnn.flags(enabled=False):
-        fwd = trainer.exp.get_dedup_forward_fn(trainer.eval_model, trainer.evaluator.dataset)
-        (ap, _, _), rows_trainer = trainer.evaluator.evaluate(fwd, return_outputs=True)
-        cli = eval_tool.main(["-f", cfg, "-c", str(run_dir / "latest_ckpt.pth"), "-b",
-                              str(TRAIN_BATCH), "--fp16", "-expn", "eval_ckpt", *data_opts],
-                             load_frame=load_frame)
+    # its in-memory EMA model, both on PyTorch's own convolution (the eval
+    # forwards run cuDNN off on a card: an image then rounds alike at every
+    # batch row; eval/seq_forward.py::per_image_convolution)
+    fwd = trainer.exp.get_dedup_forward_fn(trainer.eval_model, trainer.evaluator.dataset)
+    (ap, _, _), rows_trainer = trainer.evaluator.evaluate(fwd, return_outputs=True)
+    cli = eval_tool.main(["-f", cfg, "-c", str(run_dir / "latest_ckpt.pth"), "-b",
+                          str(TRAIN_BATCH), "--fp16", "-expn", "eval_ckpt", *data_opts],
+                         load_frame=load_frame)
     # random weights: the eval-mode trunk normalises each frame by running
     # statistics of other frames, and a random trunk amplifies that
     # difference until some boxes' exp(w, h) may overflow; scores stay
@@ -1249,12 +1288,24 @@ def phase_streamer(synth) -> dict:
     return child_launches
 
 
-def row_gaps(rows, rows_ref) -> dict:
-    """How far two evaluations' COCO rows lie apart, per (image, class)
-    cell, in each cell's score order: rows equal, cells whose row count
-    differs (a box crossed the confidence threshold or an NMS decision
-    flipped), and the largest box and score gaps between the rows of cells
-    with equal counts."""
+def _iou_xywh(a, b) -> float:
+    ax2, ay2, bx2, by2 = a[0] + a[2], a[1] + a[3], b[0] + b[2], b[1] + b[3]
+    iw = max(0.0, min(ax2, bx2) - max(a[0], b[0]))
+    ih = max(0.0, min(ay2, by2) - max(a[1], b[1]))
+    inter = iw * ih
+    union = a[2] * a[3] + b[2] * b[3] - inter
+    return inter / union if union > 0 else 0.0
+
+
+def matched_rows(rows, rows_ref, iou_min: float = 0.9) -> dict:
+    """Two evaluations' COCO rows matched by box within each (image, class)
+    cell: the reference rows in score order each take the unmatched row of
+    the other run with the highest IoU, if it is >= ``iou_min``. Returns the
+    matched pairs' largest box gap (px) and score gap, and the rows left
+    unmatched on either side (a box that crossed the confidence threshold or
+    an NMS decision that flipped) and their share of both runs' rows. Two
+    near-tied rows that swap places in score order still pair with their
+    own boxes."""
     def cells(rs):
         out = {}
         for r in rs:
@@ -1262,19 +1313,332 @@ def row_gaps(rows, rows_ref) -> dict:
         return out
 
     a, b = cells(rows), cells(rows_ref)
-    out = {"rows": len(rows), "rows_ref": len(rows_ref), "rows_equal": 0, "cells": len(b),
-           "cells_other_count": 0, "box_max_abs": 0.0, "score_max_abs": 0.0}
+    out = {"rows": len(rows), "rows_ref": len(rows_ref), "pairs": 0, "unmatched": 0,
+           "box_max_abs": 0.0, "score_max_abs": 0.0}
     for key in set(a) | set(b):
-        x, y = a.get(key, []), b.get(key, [])
-        if len(x) != len(y):
-            out["cells_other_count"] += 1
-            continue
-        for r, q in zip(x, y):
-            out["rows_equal"] += r == q
+        free = list(a.get(key, []))
+        for q in sorted(b.get(key, []), key=lambda r: -r["score"]):
+            ious = [_iou_xywh(r["bbox"], q["bbox"]) for r in free]
+            best = int(np.argmax(ious)) if ious else -1
+            if best < 0 or ious[best] < iou_min:
+                out["unmatched"] += 1
+                continue
+            r = free.pop(best)
+            out["pairs"] += 1
             out["box_max_abs"] = max(out["box_max_abs"], float(
                 np.abs(np.subtract(r["bbox"], q["bbox"])).max()))
             out["score_max_abs"] = max(out["score_max_abs"], abs(r["score"] - q["score"]))
+        out["unmatched"] += len(free)
+    out["unmatched_share"] = out["unmatched"] / max(1, len(rows) + len(rows_ref))
     return out
+
+
+def det_rows(rows, image_id) -> list:
+    """A detector's ``[K, 8]`` block as COCO-style rows (kept rows only,
+    xywh boxes, score = obj * cls) for ``matched_rows``."""
+    kept = rows[rows[:, 7] > 0.5]
+    return [{"image_id": image_id, "category_id": int(r[6]),
+             "bbox": [float(r[0]), float(r[1]), float(r[2] - r[0]), float(r[3] - r[1])],
+             "score": float(r[4] * r[5])} for r in kept]
+
+
+def conv_calls(model, images, buffer) -> list:
+    """The ``BaseConv`` calls of one steady on_pipe step, in order:
+    (n, c, h, w, c_out, k, stride, groups) of each."""
+    import torch
+
+    from streamyolo_torch.nn.blocks import BaseConv
+
+    seen = []
+
+    def record(mod, args):
+        c = mod.conv
+        seen.append((*args[0].shape, c.out_channels, c.kernel_size[0], c.stride[0], c.groups))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, BaseConv)]
+    with torch.inference_mode():
+        model(images, buffer=buffer, mode="on_pipe")
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def conv_work(shape, elem_bytes: int):
+    """(MACs, bytes, float32 operations) of one int8 conv call: the float
+    input read once, the int8 kernel and the scales, the output written
+    once; a quantize per input and a dequantize per output value."""
+    n, c, h, w, co, k, stride, groups = shape
+    pad = (k - 1) // 2
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    macs = n * ho * wo * co * (c // groups) * k * k
+    n_bytes = (n * c * h * w * elem_bytes + co * (c // groups) * k * k + 4 * co + 4 * c
+               + n * co * ho * wo * elem_bytes)
+    return macs, n_bytes, n * c * h * w * INT8_QUANT_OPS + n * co * ho * wo * INT8_DEQUANT_OPS
+
+
+def int8_operands(shape, dtype, per_channel: bool, seed: int):
+    """Seeded card operands of one conv shape: a ``channels_last`` input
+    (normal, scale 2), an int8 ``channels_last`` kernel, ``w_scale`` and a
+    per-tensor (the input's absmax / 127) or per-channel ``act_scale``."""
+    import torch
+
+    n, c, h, w, co, k, stride, groups = shape
+    gen = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last
+    x = (torch.randn(n, c, h, w, generator=gen) * 2).to(dtype)
+    kq = torch.randint(-127, 128, (co, c // groups, k, k), generator=gen, dtype=torch.int8)
+    ws = torch.rand(co, generator=gen) * 1e-2 + 1e-4
+    act = (torch.rand(c, generator=gen) * 0.05 + 0.01) if per_channel \
+        else torch.tensor(float(x.float().abs().max()) / 127.0)
+    return (x.cuda().contiguous(memory_format=cl), kq.cuda().contiguous(memory_format=cl),
+            ws.cuda(), act.cuda())
+
+
+def int8_exact(x, kq, ws, act, stride: int, groups: int, label: str) -> int:
+    """The int8 kernel against its plain version on the card, every element
+    equal; returns the elements compared. Restores the launch count: a
+    check is no launch of the path."""
+    import torch
+
+    from streamyolo_torch.ops.int8_conv import int8_conv, int8_conv_plain
+
+    saved = int8_conv.launches
+    got = int8_conv(x, kq, ws, act, stride=stride, groups=groups)
+    torch.cuda.synchronize()
+    int8_conv.launches = saved
+    want = int8_conv_plain(x, kq, ws, act, stride, groups)
+    check(got.dtype == x.dtype and got.is_contiguous(memory_format=torch.channels_last),
+          f"int8 conv output at {label} is not channels_last {x.dtype}")
+    bad = int((got != want).sum())
+    check(bad == 0, f"int8 conv differs from its plain version at {label}: {bad} elements")
+    return got.numel()
+
+
+def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
+    """StreamYOLO-l at 600x960 through the int8 PTQ serving path. The
+    seeded weights of ``EVAL_CONFIG`` with the prediction biases lifted
+    (``lifted_state``), calibrated off_pipe on ``INT8_CALIB_FRAMES`` frames
+    by a float32 model on the card, quantized (BN folded, every CBS conv
+    int8), served bf16 through ``CUDAStreamDetector``.
+
+    Checks: the kernel against its plain version, every element equal, at
+    every distinct ``BaseConv`` shape of the steady step (found by hooks;
+    bf16, the heaviest ``INT8_HEAVIEST`` also float32 and per-channel) and
+    at edge cases (C_in 12, depthwise, batch 8, an all-zero input at the
+    scale floor, .5 ties and values past +-127); one kernel launch per
+    quantized conv call and one B1 launch per step; the scales float32
+    after ``_place``; the float32 int8 step of the card against the CPU's
+    (the stem's int8 conv, which sees exact pixels, equal; decoded outputs
+    within ``INT8_BOX_REL`` / ``INT8_PROB_ABS``). Times: the step (device
+    and wall, beside the bf16 step of this process), the heaviest shapes
+    and the whole step's convs against their bound, the plain version and
+    the library yardsticks (cuDNN's bf16 convolution of the same layer;
+    ``torch._int_mm`` for the 1x1 stride-1 layers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.nn.blocks import BaseConv
+    from streamyolo_torch.ops.int8_conv import int8_conv, int8_conv_plain
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.quant import calibrate_activations, quantize_state_dict
+    from streamyolo_torch.stream import CUDAStreamDetector
+
+    dev = torch.device("cuda")
+    exp = get_exp(exp_name=EVAL_CONFIG)
+    state = lifted_state(exp)
+    m32 = exp.get_model("cuda")
+    m32.load_state_dict(state, strict=True)
+    x6 = np.stack([np.concatenate([frames[i], frames[(i + 1) % len(frames)]], -1)
+                   for i in range(INT8_CALIB_FRAMES)])
+    t0 = time.perf_counter()
+    q = quantize_state_dict(state, calibrate_activations(m32, [x6]))
+    quantize_s = time.perf_counter() - t0
+    n_quantized = sum(k.endswith(".kernel_q") for k in q)
+
+    exp.compute_dtype = "bfloat16"
+    m16 = exp.get_model("cuda")
+    m16.load_state_dict(q, strict=True)
+    det = CUDAStreamDetector(m16, input_size=INPUT, in_scale=0.5, conf_thre=CONF, nms_thre=NMS,
+                             num_classes=NCLS, pre_nms_topk=TOPK, use_bf16=True)
+    blocks = [m for m in det.model.modules() if isinstance(m, BaseConv)]
+    check(len(blocks) == n_quantized and all(
+        m.kernel_q.dtype == torch.int8 and m.w_scale.dtype == m.act_scale.dtype == torch.float32
+        and m.kernel_q.is_cuda and m.bn.weight.dtype == torch.bfloat16 for m in blocks),
+        "int8: a quantized block lost its int8 kernel or float32 scales in _place")
+    det.warmup(3)
+    img = torch.from_numpy(frames[0]).to(dev)[None]
+    det.reset()
+    det.step(img)
+    calls = conv_calls(det.model, img, det._buffer)
+    star_calls = conv_calls(det.model, img, None)
+    check(len(calls) >= n_quantized, f"int8: {len(calls)} conv calls for {n_quantized} blocks")
+
+    # the main path: a star and STEADY_STEPS steady steps
+    int8_conv.launches = 0
+    nms_keep.launches = 0
+    det.reset()
+    kept = []
+    for i in range(1 + STEADY_STEPS):
+        launched = int8_conv.launches
+        _, _, labels, _ = det(frames[i % len(frames)], preprocessed=True)
+        want = len(star_calls if i == 0 else calls)
+        check(int8_conv.launches - launched == want,
+              f"int8 step {i}: {int8_conv.launches - launched} kernel launches for "
+              f"{want} quantized conv calls")
+        check(np.isfinite(det.last_rows).all(), f"int8 step {i}: rows not finite")
+        kept.append(len(labels))
+    launches = {"int8_conv": int8_conv.launches, "nms": nms_keep.launches}
+    check(launches["nms"] == 1 + STEADY_STEPS,
+          f"int8: B1 launched {launches['nms']} times for {1 + STEADY_STEPS} steps")
+
+    # the step's times beside the bf16 step of this process
+    det.reset()
+    det.step(img)
+    step_device_ms = time_cuda(lambda: det.step(img), iters=STEADY_STEPS)
+    wall = []
+    for i in range(STEADY_STEPS):
+        t = time.perf_counter()
+        det(frames[i % len(frames)], preprocessed=True)
+        wall.append((time.perf_counter() - t) * 1e3)
+    step = {"int8_device_ms": step_device_ms, "int8_wall_ms": statistics.median(wall),
+            "bf16_device_ms": bf16_steps["host_device_ms"],
+            "bf16_wall_ms": bf16_steps["host_wall_ms"]}
+    del det, m16
+
+    # float32 int8 step: the card against the CPU (TF32 off)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32.load_state_dict(q, strict=True)
+    m32 = m32.to(memory_format=torch.channels_last)
+    exp.compute_dtype = "float32"
+    mcpu = exp.get_model("cpu")
+    mcpu.load_state_dict(q, strict=True)
+    stem_in = {}
+    hooks = [m.backbone.backbone.stem.conv.register_forward_pre_hook(
+        lambda mod, args, key=key: stem_in.setdefault(key, args[0]))
+        for key, m in (("gpu", m32), ("cpu", mcpu))]
+    x0, x1 = (torch.from_numpy(f)[None] for f in frames[:2])
+    with torch.inference_mode():
+        c_star, c_buf = mcpu(x0, mode="on_pipe")
+        c_steady, _ = mcpu(x1, buffer=c_buf, mode="on_pipe")
+        g_star, g_buf = m32(x0.to(dev), mode="on_pipe")
+        g_steady, _ = m32(x1.to(dev), buffer=g_buf, mode="on_pipe")
+    for h in hooks:
+        h.remove()
+    stem = m32.backbone.backbone.stem.conv
+    check(torch.equal(stem_in["gpu"].cpu(), stem_in["cpu"]), "int8: the stem inputs differ")
+    stem_elems = int8_exact(stem_in["gpu"], stem.kernel_q, stem.w_scale, stem.act_scale, 1, 1,
+                            "the stem (exact pixels)")
+    saved = int8_conv.launches
+    stem_card = int8_conv(stem_in["gpu"], stem.kernel_q, stem.w_scale, stem.act_scale).cpu()
+    int8_conv.launches = saved
+    stem_cpu = int8_conv_plain(stem_in["cpu"], *(t.cpu() for t in (
+        stem.kernel_q, stem.w_scale, stem.act_scale)))
+    check(torch.equal(stem_card, stem_cpu), "int8: the stem's conv on the card differs from "
+          "the plain version on the CPU")
+    card_vs_cpu = {name: fp32_errors(g.cpu(), c) for name, c, g in (
+        ("star", c_star, g_star), ("steady", c_steady, g_steady))}
+    torch.backends.cudnn.allow_tf32 = True
+    del m32, mcpu
+    for name, err in card_vs_cpu.items():
+        check(err["box_rel_err"] < INT8_BOX_REL and err["prob_abs_err"] < INT8_PROB_ABS,
+              f"int8 float32 step, card vs CPU ({name}): {err}")
+
+    # the kernel against its plain version at every distinct shape of the step
+    distinct = sorted(set(calls), key=lambda s: -conv_work(s, 2)[0])
+    heaviest = distinct[:INT8_HEAVIEST]
+    compared, cases = 0, []
+    for i, shape in enumerate(distinct):
+        n, c, h, w, co, k, stride, groups = shape
+        variants = [(torch.bfloat16, False)]
+        if shape in heaviest or c == 12:
+            variants += [(torch.float32, False), (torch.bfloat16, True)]
+        for dtype, per_channel in variants:
+            ops = int8_operands(shape, dtype, per_channel, seed=i)
+            compared += int8_exact(*ops, stride, groups, f"{shape} {dtype} pc={per_channel}")
+        cases.append(f"{n}x{c}x{h}x{w}->{co} k{k} s{stride}")
+    edge = [(8, 64, 75, 120, 64, 3, 2, 1), (2, 128, 38, 60, 128, 3, 1, 128),
+            (1, 256, 19, 30, 256, 3, 2, 256)]
+    for j, shape in enumerate(edge):
+        ops = int8_operands(shape, torch.bfloat16, j == 1, seed=100 + j)
+        compared += int8_exact(*ops, shape[6], shape[7], f"edge {shape}")
+    x, kq, ws, _ = int8_operands((2, 64, 19, 30, 64, 3, 1, 1), torch.float32, False, seed=7)
+    ties = (torch.randint(-300, 301, x.shape, device=dev) / 2.0).contiguous(
+        memory_format=torch.channels_last)
+    for label, xi, act in (("all zero, scale floor", torch.zeros_like(x), 1e-8 / 127.0),
+                           (".5 ties, past +-127", ties, 1.0),
+                           (".5 ties, scale 0.5", ties, 0.5)):
+        compared += int8_exact(xi, kq, ws, torch.tensor(act, device=dev), 1, 1, label)
+        compared += int8_exact(xi.to(torch.bfloat16), kq, ws, torch.tensor(act, device=dev),
+                               1, 1, label + " bf16")
+
+    # times: the heaviest shapes alone, and every call of the step summed
+    def layer_times(shape, reps: int, single: bool):
+        n, c, h, w, co, k, stride, groups = shape
+        x, kq, ws, act = int8_operands(shape, torch.bfloat16, False, seed=0)
+        wt = (torch.randn(co, c // groups, k, k, device=dev) * 0.05).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        kernel = lambda: int8_conv(x, kq, ws, act, stride=stride, groups=groups)  # noqa: E731
+        cudnn = lambda: F.conv2d(x, wt, stride=stride, padding=(k - 1) // 2,  # noqa: E731
+                                 groups=groups)
+        saved = int8_conv.launches
+        out = {"ms_back_to_back": time_back_to_back(kernel, calls=20, reps=reps),
+               "cudnn_bf16_ms_back_to_back": time_back_to_back(cudnn, calls=20, reps=reps),
+               "plain_ms": time_cuda(lambda: int8_conv_plain(x, kq, ws, act, stride, groups),
+                                     iters=reps)}
+        if single:
+            out["ms"] = time_cuda(kernel, iters=50, device_only=True)
+            out["cudnn_bf16_ms"] = time_cuda(cudnn, iters=50, device_only=True)
+        if k == 1 and stride == 1 and groups == 1:
+            # the int32 product of the pre-quantized [N*H*W, C_in] x [C_in, C_out]
+            a = torch.randint(-127, 128, (n * h * w, c), device=dev, dtype=torch.int8)
+            b = kq.reshape(co, c).t()
+            try:
+                out["int_mm_ms_back_to_back"] = time_back_to_back(
+                    lambda: torch._int_mm(a, b), calls=20, reps=reps)
+            except RuntimeError as e:  # a yardstick, not the port's path
+                out["int_mm_error"] = str(e).splitlines()[0]
+        int8_conv.launches = saved
+        macs, n_bytes, fops = conv_work(shape, 2)
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, fops, 2 * macs)
+        out["macs"] = macs
+        return out
+
+    per_layer = [{"shape": list(s), **layer_times(s, reps=5, single=True)} for s in heaviest]
+    counts = {s: calls.count(s) for s in distinct}
+    whole = {"calls": len(calls), "distinct_shapes": len(distinct), "macs": 0, "ms": 0.0,
+             "cudnn_bf16_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_bytes_ms": 0.0,
+             "bound_ops_ms": 0.0, "int_mm_ms_1x1": 0.0, "kernel_ms_1x1": 0.0}
+    for s, cnt in counts.items():
+        t = layer_times(s, reps=3, single=False)
+        macs, n_bytes, fops = conv_work(s, 2)
+        whole["macs"] += cnt * macs
+        whole["ms"] += cnt * t["ms_back_to_back"]
+        whole["cudnn_bf16_ms"] += cnt * t["cudnn_bf16_ms_back_to_back"]
+        whole["plain_ms"] += cnt * t["plain_ms"]
+        whole["bound_ms"] += cnt * t["bound_ms"]
+        whole["bound_bytes_ms"] += cnt * n_bytes / HBM_BYTES_PER_S * 1e3
+        whole["bound_ops_ms"] += cnt * (fops / FP32_OPS_PER_S + 2 * macs / INT8_OPS_PER_S) * 1e3
+        if "int_mm_ms_back_to_back" in t:
+            whole["int_mm_ms_1x1"] += cnt * t["int_mm_ms_back_to_back"]
+            whole["kernel_ms_1x1"] += cnt * t["ms_back_to_back"]
+    whole["bound_by"] = "bytes" if whole["bound_bytes_ms"] >= whole["bound_ops_ms"] \
+        else "operations"
+    emit("int8", model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
+         calibration=f"{INT8_CALIB_FRAMES} frames, off_pipe, float32 model on the card",
+         quantize_s=quantize_s, quantized_blocks=n_quantized, conv_calls_per_step=len(calls),
+         distinct_shapes=cases, elements_compared=compared, exact=True,
+         stem_elements_card_vs_cpu=stem_elems,
+         stem_input_channels_last=stem_in["gpu"].is_contiguous(memory_format=torch.channels_last),
+         launches=launches,
+         launches_per_step=launches["int8_conv"] / (1 + STEADY_STEPS),
+         kept_min=min(kept), kept_max=max(kept), step=step,
+         fp32_card_vs_cpu=card_vs_cpu, heaviest=per_layer, whole_step_convs=whole,
+         floor_ms=floor)
+    return {"launches": launches, "compared": compared, "heaviest": per_layer, "whole": whole,
+            "step": step}
 
 
 E2E_CONFIG = '''"""StreamYOLO-s at depth 0.33, width 0.25, 150x240: the tiny model that
@@ -1304,15 +1668,21 @@ def phase_trained_e2e(out_dir: Path) -> dict:
     ``tools/train.py`` trains ``E2E_EPOCHS`` epochs at batch ``E2E_BATCH``
     under bf16 autocast (SGD, LR ``E2E_LR_PER_IMG`` per image, a one-epoch
     warmup and a cosine to 0.05 of it; no per-epoch eval: (a) scores the
-    EMA). Then, on the EMA weights: (a) ``tools/eval.py`` (dedup, and
-    ``--no-dedup`` under the eval CLI's own cuDNN settings), (b)
-    ``stream_det`` under the wall clock with ``--device-preproc`` and
-    ``streaming_eval`` against the annotations, (c) ``--sim-zoo`` at (b)'s
-    measured runtimes, (d) at ``E2E_SLOW_S``, (e) ``forecast_kf`` on (d).
-    Checks: (a) AP50 >= 20; (d) sAP < (c) sAP; (b) and (c) within 2 sAP."""
+    EMA). Then, on the EMA weights: (a) ``tools/eval.py`` (dedup and
+    ``--no-dedup``, float and ``--int8``), (b) ``stream_det`` under the wall
+    clock with ``--device-preproc`` and ``streaming_eval`` against the
+    annotations, (c) ``--sim-zoo`` at (b)'s measured runtimes, (d) at
+    ``E2E_SLOW_S``, (e) ``forecast_kf`` on (d). Checks: (a) AP50 >= 20, the
+    int8 AP50 within 5 and AP within 8 points of the float eval's, and
+    (ROADMAP C.1) the dedup rows against the ``--no-dedup`` rows,
+    box-matched, within the guard's bf16 tolerance with at most
+    ``E2E_UNMATCHED_MAX`` of the rows unmatched, float and int8; (d) sAP <
+    (c) sAP; (b) and (c) within 2 sAP."""
     import torch
 
     from streamyolo_torch.data import SyntheticArgoverse
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.ops.int8_conv import int8_conv
     from streamyolo_torch.ops.nms_cuda import nms_keep
     from streamyolo_torch.ops.preproc import downsample2x
     from streamyolo_torch.stream import add_to_runtime_zoo
@@ -1329,14 +1699,19 @@ def phase_trained_e2e(out_dir: Path) -> dict:
     annot = str(ann_dir / "val.json")
     cfg = out_dir / "tiny_s.py"
     cfg.write_text(E2E_CONFIG)
-    data_opts = ["data_dir", str(out_dir), "output_dir", str(out_dir / "runs")]
+    # no loader workers in the evals either: each eval's loader (and the int8
+    # calibration's) would spawn them anew, ~40 s each on the card's host
+    data_opts = ["data_dir", str(out_dir), "output_dir", str(out_dir / "runs"),
+                 "data_num_workers", str(E2E_WORKERS)]
     launches = {}
 
     def counted(name, fn):
         nms_keep.launches = 0
         downsample2x.launches = 0
+        int8_conv.launches = 0
         out = fn()
-        launches[name] = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+        launches[name] = {"nms": nms_keep.launches, "preproc": downsample2x.launches,
+                          "int8_conv": int8_conv.launches}
         return out
 
     t0 = time.perf_counter()
@@ -1344,8 +1719,8 @@ def phase_trained_e2e(out_dir: Path) -> dict:
         ["-f", str(cfg), "-b", str(E2E_BATCH), "--fp16", "-expn", "tiny", *data_opts,
          "max_epoch", str(E2E_EPOCHS), "no_aug_epochs", str(E2E_EPOCHS),
          "eval_interval", str(E2E_EPOCHS + 1), "warmup_epochs", "1", "scheduler", "warmcos",
-         "basic_lr_per_img", str(E2E_LR_PER_IMG), "data_num_workers", str(E2E_WORKERS),
-         "save_history_ckpt", "False", "print_interval", "9", "seed", str(SEED)],
+         "basic_lr_per_img", str(E2E_LR_PER_IMG), "save_history_ckpt", "False",
+         "print_interval", "9", "seed", str(SEED)],
         load_frame=synth.frame))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -1355,17 +1730,31 @@ def phase_trained_e2e(out_dir: Path) -> dict:
     del trainer
     ckpt = str(out_dir / "runs" / "tiny" / "latest_ckpt.pth")
 
-    # (a) the offline pseudo-streaming eval, dedup and dual-frame, under the
-    # eval CLI's own cuDNN settings (benchmark on)
+    # (a) the offline pseudo-streaming eval through the eval CLI, dedup and
+    # dual-frame, float and int8 PTQ (calibrated on the first
+    # E2E_CALIB_BATCHES val batches)
     offline = {}
-    for name, extra in (("dedup", []), ("no_dedup", ["--no-dedup"])):
+    int8_args = ["--int8", "--calib-batches", str(E2E_CALIB_BATCHES)]
+    for name, extra in (("dedup", []), ("no_dedup", ["--no-dedup"]), ("int8", int8_args),
+                        ("int8_no_dedup", [*int8_args, "--no-dedup"])):
         res = counted(f"eval_{name}", lambda extra=extra: eval_tool.main(
             ["-f", str(cfg), "-c", ckpt, "-b", str(E2E_EVAL_BATCH), "--fp16", "-expn",
              f"eval_{name}", *extra, *data_opts], load_frame=synth.frame))
         offline[name] = res
-    rows_moved = row_gaps(offline["dedup"]["rows"], offline["no_dedup"]["rows"])
     a = {k: {"AP": 100 * offline[k]["ap"], "AP50": 100 * offline[k]["ap50"],
              "rows": len(offline[k]["rows"])} for k in offline}
+    # ROADMAP C.1: every batch of the dedup eval against the dual-frame
+    # eval, box-matched, within the guard's bf16 tolerance at the model's
+    # input scale
+    e2e_exp = get_exp(str(cfg))
+    e2e_exp.compute_dtype = "bfloat16"
+    box_tol, score_tol = e2e_exp.dedup_tolerance()
+    px = E2E_RAW[1] / e2e_exp.test_size[1]  # raw pixels per model-input pixel
+    c1 = {}
+    for name, dedup, dual in (("float", "dedup", "no_dedup"), ("int8", "int8", "int8_no_dedup")):
+        gap = matched_rows(offline[dedup]["rows"], offline[dual]["rows"])
+        gap["box_max_model_px"] = gap["box_max_abs"] / px
+        c1[name] = gap
 
     # (b)-(d) the real-time CLI on the same weights, (e) the forecast
     common = ["--data-root", str(out_dir), "--annot-path", annot, "-f", str(cfg), "-c", ckpt,
@@ -1412,12 +1801,19 @@ def phase_trained_e2e(out_dir: Path) -> dict:
                  "eval_batch": E2E_EVAL_BATCH},
          train_s=train_s, train_step_ms_median=statistics.median(warm_ms) if warm_ms else None,
          losses_last_window=losses, table=table,
-         offline_eval=a, dedup_vs_no_dedup_rows_cudnn=rows_moved, scores=scored,
+         offline_eval=a, dedup_vs_no_dedup_rows_cudnn=c1, scores=scored,
          launches=launches)
     check(all(np.isfinite(losses)), f"trained_e2e: a loss is not finite: {losses}")
     check(a["dedup"]["AP50"] >= 20.0, f"trained_e2e: offline AP50 {a['dedup']['AP50']} < 20")
     check(abs(a["dedup"]["AP"] - a["no_dedup"]["AP"]) <= 0.5,
           f"trained_e2e: dedup and dual-frame AP differ: {a}")
+    for name, gap in c1.items():
+        check(gap["box_max_model_px"] <= box_tol and gap["score_max_abs"] <= score_tol
+              and gap["unmatched_share"] <= E2E_UNMATCHED_MAX,
+              f"trained_e2e C.1 ({name}): dedup rows against --no-dedup rows: {gap}")
+    check(a["int8"]["AP50"] >= a["dedup"]["AP50"] - 5.0 and a["int8"]["AP"] >= a["dedup"]["AP"] - 8.0,
+          f"trained_e2e: int8 loses more than 5 AP50 / 8 AP points: {a}")
+    check(launches["eval_int8"]["int8_conv"] > 0, "trained_e2e: the int8 eval launched no kernel")
     check(scored["sim_45ms"]["sAP"] < scored["sim_measured"]["sAP"],
           "trained_e2e: sAP at 45 ms is not below sAP at the measured step")
     check(abs(scored["wall"]["sAP"] - scored["sim_measured"]["sAP"]) <= 2.0,
@@ -1678,6 +2074,10 @@ def main() -> int:
     floor = {"single": time_cuda(lambda: one.add_(1), iters=200, device_only=True),
              "back_to_back": time_back_to_back(lambda: one.add_(1))}
 
+    # 7c. the int8 PTQ serving path: calibrate, quantize, serve, the kernel
+    # against its plain version at every conv shape of the step, times
+    int8 = phase_int8(frames, steps, floor)
+
     # 8. the offline pseudo-streaming evaluation (B1 at K = 1000)
     offline = phase_offline_eval(Path(__file__).resolve().parent / "build" / "chip_smoke_eval",
                                  floor)
@@ -1772,6 +2172,22 @@ def main() -> int:
                                   offline["launches"]["no_dedup"]["preproc"],
                               "train": train["launches"]["preproc"],
                               **new_path_launches("preproc", cli, streamer, trained)}},
+        {"name": "int8_conv", "route": "cuda", "source": "streamyolo_torch/csrc/int8_conv.cu",
+         "replaces": "streamyolo_tpu/nn/blocks.py:123",
+         "launches": int8["launches"]["int8_conv"], "max_abs_err": 0.0,
+         "ms": int8["whole"]["ms"], "plain_ms": int8["whole"]["plain_ms"],
+         "bound_ms": int8["whole"]["bound_ms"], "bound_by": int8["whole"]["bound_by"],
+         "library_ms": int8["whole"]["cudnn_bf16_ms"],
+         "shape": f"the {int8['whole']['calls']} conv calls of one steady StreamYOLO-l step "
+                  "at 600x960, bf16, summed (each shape timed back to back, times its count)",
+         "library": "cuDNN bf16 F.conv2d of the same layers (no quantize)",
+         "elements_compared": int8["compared"], "heaviest": int8["heaviest"],
+         "int_mm_ms_1x1": int8["whole"]["int_mm_ms_1x1"],
+         "kernel_ms_1x1": int8["whole"]["kernel_ms_1x1"], "step": int8["step"],
+         "floor_ms": floor, "ptxas": ptxas.get("int8_conv"),
+         "launches_by_path": {"int8_serving": int8["launches"]["int8_conv"],
+                              "int8_eval": trained["eval_int8"]["int8_conv"],
+                              "int8_eval_no_dedup": trained["eval_int8_no_dedup"]["int8_conv"]}},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

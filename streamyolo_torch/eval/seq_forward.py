@@ -61,10 +61,14 @@ def support_shifts(dataset) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def _per_image_convolution(device: torch.device, on: bool):
-    """cuDNN off on a card while ``on``: PyTorch's own convolution, one GEMM
-    per image of the batch."""
-    if not on or device.type != "cuda":
+def per_image_convolution(device: torch.device):
+    """cuDNN off on a card: PyTorch's own convolution, one GEMM per image of
+    the batch, so that an image rounds alike at every batch row and in every
+    batch (cuDNN's split-K kernels round an image by its row,
+    ``tools/row_invariance.py``, and which kernel it picks depends on the
+    batch). The eval forwards run under it, so that the dedup eval's rows
+    equal the dual-frame eval's."""
+    if device.type != "cuda":
         yield
         return
     enabled = torch.backends.cudnn.enabled
@@ -95,14 +99,15 @@ class SequentialDedupForward:
     scores). The first batch holds the boundary rows (fid 0 self-support),
     so a wiring fault (wrong shifts, a stale carry) shows there.
 
-    On a card both forwards of the guarded batch run with cuDNN off.
-    The dual-frame forward computes a support frame at another batch row
-    than the dedup forward does, and cuDNN's split-K kernels round an image
-    by its row (``tools/row_invariance.py``), which a deep trunk carries
-    past the bf16 bound. cuDNN's heuristic choice takes such kernels, and
-    its timed choice (``cudnn.benchmark``) takes them in some processes.
-    PyTorch's own convolution runs one GEMM per image, so an image rounds
-    alike at every row and in every batch. The later batches run cuDNN."""
+    On a card every batch runs with cuDNN off (``per_image_convolution``),
+    as the dual-frame forward of ``StreamExp.get_forward_fn`` does. The
+    dual-frame forward computes a support frame at another batch row than
+    the dedup forward does, and cuDNN's split-K kernels round an image by
+    its row (``tools/row_invariance.py``), which a deep trunk carries past
+    the bf16 bound: under cuDNN, later batches moved rows by up to 1.75 px
+    and 0.047 in score on trained weights (ROADMAP C.1). PyTorch's own
+    convolution runs one GEMM per image, so an image rounds alike at every
+    row and in every batch, and the two evals' rows are equal."""
 
     needs_ids = True
 
@@ -143,14 +148,13 @@ class SequentialDedupForward:
         # the device: a host copy of the strided 3-channel slice costs more
         # than the extra bytes
         frames = torch.from_numpy(images).to(self._device)[..., :3].contiguous()
-        guard = self._verify_fn is not None
-        with _per_image_convolution(self._device, guard):
+        with per_image_convolution(self._device):
             preds, self._carry = self._model(
                 frames, buffer=self._carry, mode="seq",
                 support_shift=torch.from_numpy(shifts).to(self._device))
-            if guard:
-                self._assert_first_batch_parity(images, preds, n_real)
-                self._verify_fn = None
+        if self._verify_fn is not None:
+            self._assert_first_batch_parity(images, preds, n_real)
+            self._verify_fn = None
         return preds
 
     def _assert_first_batch_parity(self, images, preds, n_real: int):

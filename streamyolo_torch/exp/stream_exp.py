@@ -116,14 +116,19 @@ class StreamExp(BaseExp):
 
     def get_forward_fn(self, model, mode: str = "off_pipe") -> Callable[[np.ndarray], torch.Tensor]:
         """Eval forward: NHWC uint8 (or float) NumPy batch -> decoded
-        ``[B, N, 5+C]`` on the model's device."""
+        ``[B, N, 5+C]`` on the model's device. On a card it runs with cuDNN
+        off (``eval/seq_forward.py::per_image_convolution``), as the dedup
+        forward does, so that both evals compute every image alike."""
+        from streamyolo_torch.eval.seq_forward import per_image_convolution
+
         self._check_dtype(model)
         device = next(model.parameters()).device
 
         @torch.inference_mode()
         def forward(images: np.ndarray) -> torch.Tensor:
             x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-            return model(x, mode=mode)
+            with per_image_convolution(device):
+                return model(x, mode=mode)
 
         return forward
 
@@ -138,8 +143,8 @@ class StreamExp(BaseExp):
         backbone pass per unique frame; needs a sequential, unsharded val
         traversal (ONE/TWO pairing, one process). ``verify_first_batch``
         (on by default: dedup is the default eval path) arms the first-batch
-        guard against the dual-frame forward of the same model (on a card
-        its batch runs with cuDNN off, ``SequentialDedupForward``)."""
+        guard against the dual-frame forward of the same model. On a card
+        both run with cuDNN off (``SequentialDedupForward``)."""
         from streamyolo_torch.eval.seq_forward import SequentialDedupForward
 
         self._check_dtype(model)

@@ -6,10 +6,14 @@ SiLU), ``DWConv``, ``Bottleneck``, ``CSPLayer``, ``SPPBottleneck`` and
 format on the card); attribute names follow the yolox ``state_dict``
 (``conv``/``bn``, ``m.0``...), the tree the JAX package's importer maps.
 
-Left out: the int8 / calibration hooks of the JAX ``BaseConv`` (they belong
-to ``quant/``), the phase-packed CSP body (``nn/packed.py``, a TPU lane
-layout with the same parameter tree) and ``_FocusStemConv`` (a TPU lane
-trick; only its parameter names ``stem.conv.conv.weight`` / ``stem.conv.bn``
+``BaseConv`` carries the int8 serving hook of the JAX ``BaseConv``: a block
+that holds ``kernel_q`` / ``w_scale`` / ``act_scale`` (``quant/ptq.py``
+builds them) runs its conv through ``ops/int8_conv.py``. Calibration is a
+forward pre-hook that ``quant/ptq.py::calibrate_activations`` registers.
+
+Left out: the phase-packed CSP body (``nn/packed.py``, a TPU lane layout
+with the same parameter tree) and ``_FocusStemConv`` (a TPU lane trick;
+only its parameter names ``stem.conv.conv.weight`` / ``stem.conv.bn``
 matter, and ``Focus`` below has them).
 
 BatchNorm: eps=1e-3, torch momentum 0.03 (the JAX package's flax momentum
@@ -25,6 +29,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from streamyolo_torch.ops.int8_conv import int8_conv
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -76,7 +82,19 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class BaseConv(nn.Module):
-    """Conv2d(bias=False) -> BatchNorm -> activation, ``(k - 1) // 2`` padding."""
+    """Conv2d(bias=False) -> BatchNorm -> activation, ``(k - 1) // 2`` padding.
+
+    int8 serving: loading a state dict that holds ``<prefix>.kernel_q``
+    (int8 OIHW), ``w_scale`` (float32 [C_out]) and ``act_scale`` (float32,
+    scalar or [C_in]) makes the block quantized; its conv then runs through
+    ``ops/int8_conv.py`` and BN (an identity with bias after the fold) and
+    the activation run in the module's dtype. A ``conv.weight`` stripped to
+    the 1-element placeholder (``quantize_state_dict(strip=True)``) loads
+    as it is. The two scales stay float32 under ``.to(dtype)`` / ``.half()``
+    (the JAX ``quant`` collection is never cast). A state dict without
+    ``kernel_q`` makes the block a float one again."""
+
+    QUANT_BUFFERS = ("kernel_q", "w_scale", "act_scale")
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
                  stride: int = 1, groups: int = 1, act: str = "silu"):
@@ -86,9 +104,51 @@ class BaseConv(nn.Module):
                               groups=groups, bias=False)
         self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
+        for name in self.QUANT_BUFFERS:
+            self.register_buffer(name, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(self.conv(x)))
+        if self.kernel_q is None:
+            return self.act(self.bn(self.conv(x)))
+        if self.training:
+            raise ValueError(
+                "int8 PTQ variables are serving-only: the round/clip in the "
+                "quantized conv has zero gradient, so training through it would "
+                "silently learn nothing — fine-tune with the fp variables and "
+                "re-quantize")
+        y = int8_conv(x, self.kernel_q, self.w_scale, self.act_scale,
+                      stride=self.conv.stride[0], groups=self.conv.groups)
+        return self.act(self.bn(y))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        quantized = prefix + "kernel_q" in state_dict
+        device = self.bn.weight.device
+        for name, dtype in zip(self.QUANT_BUFFERS, (torch.int8, torch.float32, torch.float32)):
+            src = state_dict.get(prefix + name) if quantized else None
+            # kernel_q channels_last: OHWI in memory, as the int8 kernel reads it
+            fmt = torch.channels_last if name == "kernel_q" and src is not None \
+                and src.ndim == 4 else torch.contiguous_format
+            self._buffers[name] = (None if src is None else torch.empty(
+                src.shape, dtype=dtype, device=device, memory_format=fmt))
+        weight = state_dict.get(prefix + "conv.weight")
+        ours = self.conv.weight
+        if weight is not None and weight.shape != ours.shape \
+                and 1 in (weight.numel(), ours.numel()) and (quantized or ours.numel() == 1):
+            # the stripped placeholder in, or a full kernel back into a stripped block
+            self.conv.weight = nn.Parameter(
+                torch.empty(weight.shape, dtype=ours.dtype, device=ours.device),
+                requires_grad=ours.requires_grad)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _apply(self, fn, recurse=True):
+        scales = {n: self._buffers[n] for n in ("w_scale", "act_scale")
+                  if self._buffers.get(n) is not None}
+        super()._apply(fn, recurse)
+        for name, before in scales.items():
+            after = self._buffers[name]
+            if after.dtype != torch.float32:  # a cast: keep float32, follow the device
+                self._buffers[name] = before.to(after.device)
+        return self
 
 
 class DWConv(nn.Module):

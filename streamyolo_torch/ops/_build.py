@@ -8,7 +8,8 @@ missing ``nvcc`` or a failed build raises.
 
 Flags: no ``--use_fast_math``; ``-fmad=false`` and IEEE division / square
 root, so that float arithmetic rounds step by step as the plain PyTorch
-versions do (the NMS keep mask must be bit-identical to them).
+versions do (the NMS keep mask and the int8 conv must be bit-identical to
+them).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("nms", "preproc")
+SOURCES = ("nms", "preproc", "int8_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-prec-div=true",

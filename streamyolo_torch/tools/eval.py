@@ -13,7 +13,11 @@ flax and optax objects and cannot be read without jax: convert it with
 ``tools/export_safetensors.py``. Eval loads strictly (``--tolerant`` keeps
 init values for missing or mismatched entries). ``--fuse`` folds BN into
 the convs in float32 before the weights are cast; ``--fp16`` builds bf16
-modules. ONE/TWO configs evaluate through the sequential-dedup forward
+modules. ``--int8`` serves the int8 PTQ model (``quant/ptq.py``): BN
+folded, activation ranges calibrated on the first ``--calib-batches`` val
+batches (in ``--speed`` mode on the timed random batch), every CBS conv
+through the int8 kernel; ``--fuse`` is then ignored (the fold is part of
+quantizing). ONE/TWO configs evaluate through the sequential-dedup forward
 with its first-batch guard against the dual-frame forward (``--no-dedup``
 for the dual-frame forward alone); ``--speed`` times the batched forward
 and postprocess on random input with the init weights. Runs on ``cuda``
@@ -23,13 +27,12 @@ unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
-
-INT8_MESSAGE = "int8 PTQ is not ported yet (ROADMAP queue A item 14)"
 
 
 def make_parser():
@@ -53,10 +56,16 @@ def make_parser():
                         help="the dual-frame (off_pipe) forward: both halves of "
                              "every 6-channel sample through the backbone")
     parser.add_argument("--int8", dest="int8", default=False, action="store_true",
-                        help=INT8_MESSAGE)
-    parser.add_argument("--calib-batches", type=int, default=None, help=INT8_MESSAGE)
+                        help="int8 PTQ serving path (quant/ptq.py): fold BN, calibrate "
+                             "activation scales on val batches, run the CBS convs "
+                             "through the int8 kernel. int8 is approximate: validate "
+                             "accuracy before shipping")
+    parser.add_argument("--calib-batches", type=int, default=8,
+                        help="val batches observed by the --int8 calibration (absmax)")
     parser.add_argument("--per-channel-act", dest="per_channel_act", default=False,
-                        action="store_true", help=INT8_MESSAGE)
+                        action="store_true",
+                        help="--int8 with one activation scale per input channel "
+                             "(folded into the kernel, the same conv cost)")
     parser.add_argument("--seed", default=None, type=int,
                         help="seed of the init weights (--speed, --tolerant)")
     parser.add_argument("--test", dest="test", default=False, action="store_true",
@@ -89,15 +98,20 @@ def load_checkpoint(path: str) -> Dict:
     return load_state_dict_file(path)
 
 
+def speed_batch(exp, batch_size: int) -> np.ndarray:
+    """The random 6-channel uint8 batch that ``--speed`` times."""
+    h, w = exp.test_size
+    return np.random.RandomState(0).randint(0, 255, (batch_size, h, w, 6)).astype(np.uint8)
+
+
 def speed_test(exp, model, batch_size: int, iters: int = 10) -> float:
-    """Median seconds of the batched forward + postprocess + D2H on random
-    6-channel uint8 input (3 warm-up batches first)."""
+    """Median seconds of the batched forward + postprocess + D2H on
+    ``speed_batch`` (3 warm-up batches first)."""
     import torch
 
     from streamyolo_torch.ops.nms import postprocess_fixed
 
-    h, w = exp.test_size
-    imgs = np.random.RandomState(0).randint(0, 255, (batch_size, h, w, 6)).astype(np.uint8)
+    imgs = speed_batch(exp, batch_size)
     forward_fn = exp.get_forward_fn(model)
 
     def run():
@@ -118,12 +132,10 @@ def speed_test(exp, model, batch_size: int, iters: int = 10) -> float:
 def main(argv: Optional[Sequence[str]] = None,
          load_frame: Optional[Callable[[dict], np.ndarray]] = None):
     """Evaluate as the command line says; returns ``ap``, ``ap50``, the
-    ``summary`` and the COCO ``rows`` (or the ``--speed`` time).
-    ``load_frame`` (image dict -> BGR uint8 frame) supplies the pixels
-    instead of reading them from ``data_dir``."""
+    ``summary``, the COCO ``rows`` and the evaluator's ``stats`` (or the
+    ``--speed`` time). ``load_frame`` (image dict -> BGR uint8 frame)
+    supplies the pixels instead of reading them from ``data_dir``."""
     args = make_parser().parse_args(argv)
-    if args.int8 or args.per_channel_act or args.calib_batches is not None:
-        raise NotImplementedError(INT8_MESSAGE)
     if args.dedup and args.no_dedup:
         raise SystemExit("--dedup conflicts with --no-dedup")
 
@@ -165,7 +177,7 @@ def main(argv: Optional[Sequence[str]] = None,
         state_dict = merge_state_dict(state_dict, load_checkpoint(ckpt_file),
                                       strict=not args.tolerant)
         logger.info("loaded checkpoint done.")
-    if args.fuse:
+    if args.fuse and not args.int8:
         logger.info("\tFusing conv+BN...")
         state_dict = fuse_state_dict(state_dict)
     import torch
@@ -177,6 +189,21 @@ def main(argv: Optional[Sequence[str]] = None,
     model = exp.get_model(args.device)
     model.load_state_dict(state_dict, strict=True)
 
+    evaluator = None
+    if args.int8:
+        from streamyolo_torch.quant import quantize_for_serving
+
+        if args.speed:  # no dataset: calibrate on the batch that is timed
+            calib = [speed_batch(exp, args.batch_size)]
+        else:
+            evaluator = exp.get_evaluator(args.batch_size, load_frame=load_frame)
+            calib = [batch[0] for batch in itertools.islice(
+                iter(evaluator.dataloader), max(1, args.calib_batches))]
+        logger.info(f"\tint8 PTQ: folding BN + calibrating on {len(calib)} batches"
+                    f"{' (per-channel act scales)' if args.per_channel_act else ''}...")
+        model.load_state_dict(quantize_for_serving(
+            model, state_dict, calib, per_channel_act=args.per_channel_act), strict=True)
+
     if args.speed:
         from streamyolo_torch.utils.model_info import get_model_info
 
@@ -186,7 +213,8 @@ def main(argv: Optional[Sequence[str]] = None,
                     f"({args.batch_size / med:.1f} imgs/s)")
         return {"speed_s_per_batch": med}
 
-    evaluator = exp.get_evaluator(args.batch_size, load_frame=load_frame)
+    if evaluator is None:
+        evaluator = exp.get_evaluator(args.batch_size, load_frame=load_frame)
     if can_dedup and not args.no_dedup:
         logger.info("sequential-dedup eval (default; --no-dedup for the dual-frame forward)")
         forward_fn = exp.get_dedup_forward_fn(model, evaluator.dataset)
@@ -195,7 +223,8 @@ def main(argv: Optional[Sequence[str]] = None,
     (ap, ap50, summary), rows = evaluator.evaluate(forward_fn, return_outputs=True)
     logger.info(f"\n{summary}")
     logger.info(f"AP: {ap:.4f}  AP50: {ap50:.4f}")
-    return {"ap": float(ap), "ap50": float(ap50), "summary": summary, "rows": rows}
+    return {"ap": float(ap), "ap50": float(ap50), "summary": summary, "rows": rows,
+            "stats": evaluator.last_stats}
 
 
 if __name__ == "__main__":

@@ -11,7 +11,11 @@ The port's modules use the yolox ``state_dict`` names
     (``dark2_0`` -> ``dark2.0``, ``m_0_1`` -> ``m.0.1``);
   * a 4-D ``kernel`` transposes HWIO -> OIHW, a 2-D one [in, out] -> [out, in];
   * BatchNorm ``scale`` -> ``weight``; ``batch_stats`` ``mean``/``var`` ->
-    ``running_mean``/``running_var``.
+    ``running_mean``/``running_var``;
+  * the int8 ``quant`` collection (``quant/ptq.py``) -> the ``BaseConv``'s
+    ``kernel_q`` (HWIO -> OIHW, int8 kept), ``w_scale`` and ``act_scale``
+    (float32 kept); a stripped 1-element ``conv.weight`` comes across as it
+    is.
 
 JAX exports no ``num_batches_tracked``; the loaders here fill it (0) for
 every BatchNorm so strict loading works. ``merge_state_dict`` puts a loaded
@@ -43,6 +47,11 @@ def flax_path_to_torch(
         segments.extend(parts[i:])
     leaf = path[-1]
     prefix = ".".join(segments)
+    if collection == "quant":
+        if leaf not in ("kernel_q", "w_scale", "act_scale"):
+            raise KeyError(f"Unrecognized quant leaf: {'/'.join(path)}")
+        transpose = (3, 2, 0, 1) if leaf == "kernel_q" and ndim == 4 else None
+        return (f"{prefix}.{leaf}" if prefix else leaf), transpose
     if collection == "batch_stats":
         if leaf not in ("mean", "var"):
             raise KeyError(f"Unrecognized batch_stats leaf: {'/'.join(path)}")
@@ -80,8 +89,9 @@ def with_num_batches_tracked(state_dict: Dict[str, torch.Tensor]) -> Dict[str, t
 
 
 def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Nested ``{'params', 'batch_stats'}`` dict of arrays -> the port's
-    state dict (torch names, OIHW convs, ``num_batches_tracked`` filled)."""
+    """Nested ``{'params', 'batch_stats'[, 'quant']}`` dict of arrays -> the
+    port's state dict (torch names, OIHW convs, ``num_batches_tracked``
+    filled; arrays keep their dtype)."""
     out: Dict[str, torch.Tensor] = {}
     for full_path, value in _flatten(variables):
         collection, path = full_path[0], full_path[1:]

@@ -354,12 +354,9 @@ def test_eval_cli_speed_and_fp16(root, ckpt, tmp_path, caplog):
 
 
 def test_eval_cli_refusals(root, ckpt, tmp_path):
-    """int8, a JAX ``.pkl``, a missing or truncated checkpoint and ``--dedup``
-    on a STILL config are refused with clear errors; ``--tolerant`` loads the
+    """A JAX ``.pkl``, a missing or truncated checkpoint and ``--dedup`` on a
+    STILL config are refused with clear errors; ``--tolerant`` loads the
     truncated checkpoint."""
-    for args in (["--int8"], ["--calib-batches", "4"], ["--per-channel-act"]):
-        with pytest.raises(NotImplementedError, match="int8 PTQ is not ported yet"):
-            cli(root, tmp_path, *args)
     pkl = tmp_path / "best_ckpt.pkl"
     pkl.write_bytes(b"not read")
     with pytest.raises(ValueError, match="export_safetensors"):
