@@ -1424,26 +1424,28 @@ def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
 
     Checks: the kernel against its plain version, every element equal, at
     every distinct ``BaseConv`` shape of the steady step (found by hooks;
-    bf16, the heaviest ``INT8_HEAVIEST`` also float32 and per-channel) and
-    at edge cases (C_in 12, depthwise, batch 8, an all-zero input at the
+    bf16; the ``INT8_HEAVIEST`` that carry the most MACs over the step also
+    float32 and per-channel; the list held to ``int8_conv_times.STEP_SHAPES``)
+    and at edge cases (C_in 12, depthwise, batch 8, an all-zero input at the
     scale floor, .5 ties and values past +-127); one kernel launch per
     quantized conv call and one B1 launch per step; the scales float32
     after ``_place``; the float32 int8 step of the card against the CPU's
     (the stem's int8 conv, which sees exact pixels, equal; decoded outputs
     within ``INT8_BOX_REL`` / ``INT8_PROB_ABS``). Times: the step (device
     and wall, beside the bf16 step of this process), the heaviest shapes
-    and the whole step's convs against their bound, the plain version and
-    the library yardsticks (cuDNN's bf16 convolution of the same layer;
-    ``torch._int_mm`` for the 1x1 stride-1 layers)."""
+    alone and back to back, every shape back to back with its calls per
+    step and plan, the whole step's convs against their bound, the plain
+    version and the library yardsticks (cuDNN's bf16 convolution of the
+    same layer; ``torch._int_mm`` for the 1x1 stride-1 layers)."""
     import torch
-    import torch.nn.functional as F
 
     from streamyolo_torch.exp import get_exp
     from streamyolo_torch.nn.blocks import BaseConv
-    from streamyolo_torch.ops.int8_conv import int8_conv, int8_conv_plain
+    from streamyolo_torch.ops.int8_conv import int8_conv, int8_conv_plain, plan_int8_conv
     from streamyolo_torch.ops.nms_cuda import nms_keep
     from streamyolo_torch.quant import calibrate_activations, quantize_state_dict
     from streamyolo_torch.stream import CUDAStreamDetector
+    from streamyolo_torch.tools.int8_conv_times import STEP_SHAPES, layer_times
 
     dev = torch.device("cuda")
     exp = get_exp(exp_name=EVAL_CONFIG)
@@ -1546,8 +1548,12 @@ def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
         check(err["box_rel_err"] < INT8_BOX_REL and err["prob_abs_err"] < INT8_PROB_ABS,
               f"int8 float32 step, card vs CPU ({name}): {err}")
 
-    # the kernel against its plain version at every distinct shape of the step
-    distinct = sorted(set(calls), key=lambda s: -conv_work(s, 2)[0])
+    # the kernel against its plain version at every distinct shape of the
+    # step; the heaviest carry the most MACs over the step (calls x MACs)
+    counts = {s: calls.count(s) for s in set(calls)}
+    check(sorted(counts.items()) == sorted((s, c) for c, s in STEP_SHAPES),
+          "int8: the step's conv shapes differ from tools/int8_conv_times.py STEP_SHAPES")
+    distinct = sorted(counts, key=lambda s: -counts[s] * conv_work(s, 2)[0])
     heaviest = distinct[:INT8_HEAVIEST]
     compared, cases = 0, []
     for i, shape in enumerate(distinct):
@@ -1574,45 +1580,19 @@ def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
         compared += int8_exact(xi.to(torch.bfloat16), kq, ws, torch.tensor(act, device=dev),
                                1, 1, label + " bf16")
 
-    # times: the heaviest shapes alone, and every call of the step summed
-    def layer_times(shape, reps: int, single: bool):
-        n, c, h, w, co, k, stride, groups = shape
-        x, kq, ws, act = int8_operands(shape, torch.bfloat16, False, seed=0)
-        wt = (torch.randn(co, c // groups, k, k, device=dev) * 0.05).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        kernel = lambda: int8_conv(x, kq, ws, act, stride=stride, groups=groups)  # noqa: E731
-        cudnn = lambda: F.conv2d(x, wt, stride=stride, padding=(k - 1) // 2,  # noqa: E731
-                                 groups=groups)
-        saved = int8_conv.launches
-        out = {"ms_back_to_back": time_back_to_back(kernel, calls=20, reps=reps),
-               "cudnn_bf16_ms_back_to_back": time_back_to_back(cudnn, calls=20, reps=reps),
-               "plain_ms": time_cuda(lambda: int8_conv_plain(x, kq, ws, act, stride, groups),
-                                     iters=reps)}
-        if single:
-            out["ms"] = time_cuda(kernel, iters=50, device_only=True)
-            out["cudnn_bf16_ms"] = time_cuda(cudnn, iters=50, device_only=True)
-        if k == 1 and stride == 1 and groups == 1:
-            # the int32 product of the pre-quantized [N*H*W, C_in] x [C_in, C_out]
-            a = torch.randint(-127, 128, (n * h * w, c), device=dev, dtype=torch.int8)
-            b = kq.reshape(co, c).t()
-            try:
-                out["int_mm_ms_back_to_back"] = time_back_to_back(
-                    lambda: torch._int_mm(a, b), calls=20, reps=reps)
-            except RuntimeError as e:  # a yardstick, not the port's path
-                out["int_mm_error"] = str(e).splitlines()[0]
-        int8_conv.launches = saved
-        macs, n_bytes, fops = conv_work(shape, 2)
-        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, fops, 2 * macs)
-        out["macs"] = macs
-        return out
-
-    per_layer = [{"shape": list(s), **layer_times(s, reps=5, single=True)} for s in heaviest]
-    counts = {s: calls.count(s) for s in distinct}
+    # times: the shapes that carry the most MACs over the step alone, and
+    # every shape back to back, summed over the step's calls
+    per_layer = [{"shape": list(s), "calls": counts[s],
+                  **layer_times(s, single=True, reps=5, plain=True)} for s in heaviest]
+    per_shape = []
     whole = {"calls": len(calls), "distinct_shapes": len(distinct), "macs": 0, "ms": 0.0,
              "cudnn_bf16_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_bytes_ms": 0.0,
              "bound_ops_ms": 0.0, "int_mm_ms_1x1": 0.0, "kernel_ms_1x1": 0.0}
     for s, cnt in counts.items():
-        t = layer_times(s, reps=3, single=False)
+        t = layer_times(s, single=False, reps=3, plain=True)
+        plan = plan_int8_conv(*s)
+        per_shape.append({"shape": list(s), "calls": cnt, **t, "plan": None if plan is None else {
+            f: getattr(plan, f) for f in ("flat", "mw", "bn", "splits", "grid")}})
         macs, n_bytes, fops = conv_work(s, 2)
         whole["macs"] += cnt * macs
         whole["ms"] += cnt * t["ms_back_to_back"]
@@ -1635,8 +1615,8 @@ def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
          launches=launches,
          launches_per_step=launches["int8_conv"] / (1 + STEADY_STEPS),
          kept_min=min(kept), kept_max=max(kept), step=step,
-         fp32_card_vs_cpu=card_vs_cpu, heaviest=per_layer, whole_step_convs=whole,
-         floor_ms=floor)
+         fp32_card_vs_cpu=card_vs_cpu, heaviest=per_layer, per_shape=per_shape,
+         whole_step_convs=whole, floor_ms=floor)
     return {"launches": launches, "compared": compared, "heaviest": per_layer, "whole": whole,
             "step": step}
 
@@ -1850,6 +1830,7 @@ def main() -> int:
     from streamyolo_torch.ops.nms_cuda import nms_keep, nms_padded, nms_padded_sequential
     from streamyolo_torch.ops.preproc import downsample2x, downsample2x_plain
     from streamyolo_torch.stream import CUDAStreamDetector
+    from streamyolo_torch.tools.int8_conv_times import ptxas_by_kernel
 
     # 1. device
     smi = subprocess.run(
@@ -1864,9 +1845,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
-                    if "registers" in ln or "bytes smem" in ln or "spill" in ln]
-             for name, r in report.items()}
+    ptxas = {name: ptxas_by_kernel(r["log"]) for name, r in report.items()}
     emit("build", seconds=build_s, per_source={n: r["seconds"] for n, r in report.items()},
          ptxas=ptxas)
 

@@ -32,6 +32,10 @@ CASES = [  # n, c, co, h, w, k, stride, groups, per_channel
     (8, 32, 48, 19, 30, 3, 2, 1, True),
     (2, 48, 48, 13, 17, 3, 1, 48, False),   # depthwise
     (1, 40, 24, 9, 11, 1, 2, 1, False),     # C_in not a multiple of 16
+    (1, 512, 512, 19, 30, 3, 1, 1, False),  # split-K across a cluster (/32 level)
+    (1, 2048, 1024, 19, 30, 1, 1, 1, False),  # the widest 1x1, split-K
+    (1, 64, 96, 13, 21, 3, 1, 1, True),     # 8 x 8 pixel tiles with tails on both axes
+    (1, 64, 64, 150, 240, 3, 1, 1, False),  # C_out 64 at the /4 level
 ]
 
 
@@ -56,7 +60,8 @@ def test_kernel_equals_plain(n, c, co, h, w, k, stride, groups, per_channel, dty
 def test_kernel_edge_inputs():
     """An all-zero input at the scale floor, exact .5 ties and values past
     +-127, and an NCHW-contiguous input (copied to channels_last); a
-    strided input is refused."""
+    strided input is refused; an input whose pointer is not 16-byte
+    aligned takes the element-by-element path and agrees too."""
     require_cuda()
     dev = torch.device("cuda")
     _, kq, ws, _ = operands(2, 32, 16, 7, 9, 3, 1, False, torch.float32)
@@ -68,6 +73,14 @@ def test_kernel_edge_inputs():
         assert torch.equal(got.cpu(), int8_conv_plain(x, kq, ws, act))
     with pytest.raises(ValueError, match="channels_last or contiguous"):
         int8_conv(ties.to(dev)[:, :, ::2], kq.to(dev), ws.to(dev), torch.tensor(1.0, device=dev))
+    # a channels_last input one element past a 16-byte boundary: the
+    # element-by-element load path of a 32-channel input
+    base = torch.empty(ties.numel() + 1, device=dev)
+    odd = base[1:].view(2, 7, 9, 32).permute(0, 3, 1, 2)
+    odd.copy_(ties.to(dev))
+    assert odd.is_contiguous(memory_format=torch.channels_last) and odd.data_ptr() % 16
+    got = int8_conv(odd, kq.to(dev), ws.to(dev), torch.tensor(0.5, device=dev))
+    assert torch.equal(got.cpu(), int8_conv_plain(ties, kq, ws, torch.tensor(0.5)))
 
 
 @pytest.mark.cuda
