@@ -36,10 +36,16 @@ same frames through a ``Streamer`` whose detector lives in a spawned child
 on the card, quantizes StreamYOLO-l to int8 (``streamyolo_torch/quant``:
 calibration, BN fold, the int8 conv kernel ``csrc/int8_conv.cu`` held bit
 for bit against its plain version at every conv shape of the step) and
-serves it, and last trains a tiny StreamYOLO with the port on the synthetic
-video and scores it offline (float and int8; the dedup eval's rows against
-the dual-frame eval's, box-matched), streaming under the wall clock, in
-simulation at the measured step and at 45 ms, and forecast. Each phase prints
+serves it, trains a tiny StreamYOLO with the port on the synthetic video and
+scores it offline (float and int8; the dedup eval's rows against the
+dual-frame eval's, box-matched), streaming under the wall clock, in
+simulation at the measured step and at 45 ms, and forecast. Last, it trains
+data-parallel (``streamyolo_torch/parallel``): a float32 step of StreamYOLO-l
+in two rank processes on the card over gloo against one process over the
+same batch and a NCCL group of one, then ``tools/train.py`` as rank 0 and 1
+of two machines (one epoch, the sharded eval with B1 in each rank, rank 0's
+gathered rows against a one-process eval of its checkpoint); the ranks run
+as ``chip_smoke.py --dp-rank ...``. Each phase prints
 one JSON line; the line before the last lists the kernels, with their
 launches on every path, and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
@@ -53,6 +59,7 @@ import functools
 import itertools
 import json
 import pickle
+import random
 import statistics
 import subprocess
 import sys
@@ -96,6 +103,18 @@ E2E_CALIB_BATCHES = 2  # the int8 eval's calibration batches
 # rows (and the reverse), at most this share of both runs' rows
 E2E_UNMATCHED_MAX = 0.01
 E2E_SLOW_S = 0.045  # a latency that misses frames at 30 fps
+# data_parallel: the step's global batch (2 per rank); a rank process's
+# limit, and the process groups' timeout
+DP_BATCH, DP_TIMEOUT_S = 4, 600
+# data_parallel's steps: (carried state, dtype name) by case. "seeded" is
+# the seeded init with seeded BatchNorm, "identity" with flax's identity
+# BatchNorm, each after one step
+DP_CASES = {"seeded_float32": ("seeded", "float32"), "seeded_float64": ("seeded", "float64"),
+            "identity_float32": ("identity", "float32"),
+            "identity_float64": ("identity", "float64")}
+# the float64 steps' bound: normwise per tensor, every tensor (momentum too),
+# 1,000 times below the float32 bound (the loss still runs in float32)
+DP_FLOAT64_NORMWISE = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published
 INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense, published
@@ -727,6 +746,30 @@ class SplitFrames:
         return self.synths[img["split"]].frame(img)
 
 
+def train_synths() -> dict:
+    """The train phase's splits, in memory: 2x24 train and 2x11 val raw
+    1200x1920 synthetic frames (seeds ``SEED + 1`` and ``SEED``)."""
+    from streamyolo_torch.data import SyntheticArgoverse
+
+    raw_size = (2 * INPUT[0], 2 * INPUT[1])
+    return {"train": SyntheticArgoverse(seq_lens=(TRAIN_FRAMES,) * TRAIN_SEQS, size=raw_size,
+                                        seed=SEED + 1),
+            "val": SyntheticArgoverse(seq_lens=(EVAL_FRAMES,) * EVAL_SEQS, size=raw_size,
+                                      seed=SEED)}
+
+
+def train_fixture(out_dir: Path) -> "SplitFrames":
+    """``train_synths``' annotation jsons under ``out_dir``; returns their
+    ``load_frame``."""
+    synths = train_synths()
+    ann_dir = out_dir / "Argoverse-HD" / "annotations"
+    ann_dir.mkdir(parents=True, exist_ok=True)
+    for split, synth in synths.items():
+        images = [dict(img, split=split) for img in synth.data["images"]]
+        (ann_dir / f"{split}.json").write_text(json.dumps(dict(synth.data, images=images)))
+    return SplitFrames(**synths)
+
+
 def train_init(exp):
     """The training run's start: the config's seeded float32 state dict with
     the cls prediction biases 0, so the eval scores (obj ~0.01 x cls ~0.5)
@@ -786,7 +829,6 @@ def phase_train(out_dir: Path) -> dict:
     overfit recipe on the card, and the times."""
     import torch
 
-    from streamyolo_torch.data import SyntheticArgoverse
     from streamyolo_torch.exp import get_exp
     from streamyolo_torch.models.losses import assign_outputs, streamyolo_losses
     from streamyolo_torch.ops.nms_cuda import nms_keep
@@ -795,16 +837,7 @@ def phase_train(out_dir: Path) -> dict:
     from streamyolo_torch.tools import train as train_tool
 
     raw_size = (2 * INPUT[0], 2 * INPUT[1])
-    synths = {"train": SyntheticArgoverse(seq_lens=(TRAIN_FRAMES,) * TRAIN_SEQS, size=raw_size,
-                                          seed=SEED + 1),
-              "val": SyntheticArgoverse(seq_lens=(EVAL_FRAMES,) * EVAL_SEQS, size=raw_size,
-                                        seed=SEED)}
-    ann_dir = out_dir / "Argoverse-HD" / "annotations"
-    ann_dir.mkdir(parents=True, exist_ok=True)
-    for split, synth in synths.items():
-        images = [dict(img, split=split) for img in synth.data["images"]]
-        (ann_dir / f"{split}.json").write_text(json.dumps(dict(synth.data, images=images)))
-    load_frame = SplitFrames(**synths)
+    load_frame = train_fixture(out_dir)
 
     exp = get_exp(exp_name=EVAL_CONFIG).merge(["data_dir", str(out_dir), "data_num_workers", "0"])
     dataset = exp.get_data_loader(batch_size=2, no_aug=True, load_frame=load_frame).dataset
@@ -831,8 +864,8 @@ def phase_train(out_dir: Path) -> dict:
     downsample2x.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-expn", "train",
-                               "-c", str(out_dir / "init.pth"), *train_opts],
+    trainer = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
+                               "-expn", "train", "-c", str(out_dir / "init.pth"), *train_opts],
                               load_frame=load_frame)
     torch.cuda.synchronize()
     train_wall_s = time.perf_counter() - t0
@@ -862,8 +895,8 @@ def phase_train(out_dir: Path) -> dict:
           "train: not one eval per epoch")
 
     # --resume: step and epoch restored (max_epoch reached: no further step)
-    resumed = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-expn", "train",
-                               "--resume", *train_opts], load_frame=load_frame)
+    resumed = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
+                               "-expn", "train", "--resume", *train_opts], load_frame=load_frame)
     check(resumed.start_epoch == TRAIN_EPOCHS and resumed.state.step == steps
           and resumed.best_ap == trainer.best_ap,
           f"--resume restored epoch {resumed.start_epoch}, step {resumed.state.step}")
@@ -995,6 +1028,474 @@ def phase_train(out_dir: Path) -> dict:
         check(np.isfinite(overfit[name]["last"]) and overfit[name]["ratio"] < 0.5,
               f"overfit ({name}): loss {overfit[name]['first']} -> {overfit[name]['last']}")
     return {"launches": launches}
+
+
+def dp_exp(data_dir: Path):
+    from streamyolo_torch.exp import get_exp
+
+    return get_exp(exp_name=EVAL_CONFIG).merge(["data_dir", str(data_dir),
+                                                "data_num_workers", "0"])
+
+
+def dp_state_of(state) -> dict:
+    """The state a train step updates, on the host, by name."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "ema": {k: v.cpu().clone() for k, v in state.ema.state.items()},
+            "momentum": {names[id(p)]: s["momentum_buffer"].cpu().clone()
+                         for p, s in state.optimizer.state.items()},
+            "step": state.step}
+
+
+def dp_tensors(state: dict):
+    """(name, tensor) of every float tensor a step updates, in a fixed order."""
+    return [(f"{part}.{k}", v) for part in ("model", "ema", "momentum")
+            for k, v in state[part].items() if v.is_floating_point()]
+
+
+def dp_same(a: dict, b: dict) -> bool:
+    """Two step results hold the same bits."""
+    import torch
+
+    ta, tb = dp_tensors(a), dp_tensors(b)
+    return (a["step"] == b["step"] and [k for k, _ in ta] == [k for k, _ in tb]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(ta, tb)))
+
+
+def dp_digest(state: dict) -> str:
+    """A hash of a step result's step count and float tensors."""
+    from streamyolo_torch.parallel import tensors_digest
+
+    return f"{state['step']}:{tensors_digest([v for _, v in dp_tensors(state)])}"
+
+
+def dp_step(work: Path, device, rank: int = 0, world: int = 1, dtype: str = "float32",
+            carried: str = "seeded", order=None, repeat: bool = True) -> dict:
+    """One train step (TF32 off, cuDNN deterministic) of StreamYOLO-l in
+    ``dtype`` from ``work/carried_{carried}.pth`` on the rank's slice of
+    ``work/batch.npz`` (its rows in ``order`` first, if given); with
+    ``repeat`` run twice from the same state (the first warms up and shows
+    whether the step repeats bit for bit). The last run's state, its
+    digest, metrics and CUDA-event ms."""
+    import torch
+
+    from streamyolo_torch.parallel import shard_batch
+    from streamyolo_torch.train import (
+        build_lr_schedule,
+        create_train_state,
+        load_carried_state,
+        make_train_step,
+    )
+
+    exp = dp_exp(work)
+    carried = torch.load(work / f"carried_{carried}.pth")
+    with np.load(work / "batch.npz") as f:
+        batch = {k: torch.from_numpy(f[k] if order is None else f[k][list(order)])
+                 for k in f.files}
+    batch = {k: v.to(device) for k, v in shard_batch(batch, rank, world).items()}
+    step = make_train_step(NCLS, build_lr_schedule("constant", exp.basic_lr_per_img * DP_BATCH,
+                                                   10, 10),
+                           gamma=exp.tal_gamma, ignore_thr=exp.tal_ignore_thr,
+                           ignore_value=exp.tal_ignore_value)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        model = exp.get_model(device, dtype=getattr(torch, dtype))
+        state = create_train_state(model)
+        for _ in range(2 if repeat else 1):
+            load_carried_state(state, carried)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(state, batch)
+            end.record()
+            end.synchronize()
+            runs.append({"state": dp_state_of(state), "ms": start.elapsed_time(end),
+                         "metrics": {k: float(v) for k, v in metrics.items()}})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = runs[-1]
+    out["digest"] = dp_digest(out["state"])
+    out["repeats_bitwise"] = dp_same(runs[0]["state"], runs[-1]["state"]) if repeat else None
+    out["first_ms"] = runs[0]["ms"]
+    return out
+
+
+def dp_normwise(a: dict, b: dict) -> dict:
+    """Per tensor ``||a - b|| / ||b||`` (in float64) of two step results."""
+    rel = {}
+    for (k, x), (_, y) in zip(dp_tensors(a), dp_tensors(b)):
+        x, y = x.double(), y.double()
+        rel[k] = float((x - y).norm() / max(float(y.norm()), 1e-6))
+    return rel
+
+
+def dp_spread(rel: dict) -> dict:
+    """Percentiles of the momentum buffers' gaps, and how many pass 1e-3."""
+    v = np.array([x for k, x in rel.items() if k.startswith("momentum.")])
+    return {q: float(np.percentile(v, q)) for q in (50, 90, 99, 100)} | {
+        "over_1e-3": int((v > 1e-3).sum()), "tensors": int(v.size)}
+
+
+def dp_seeded_bn(state: dict) -> dict:
+    """``state`` with every BatchNorm's weight, bias and running statistics
+    drawn from a seeded generator (the CPU parity tests' ``randomize_bn``)."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 8)
+    draw = {"weight": lambda n: rng.uniform(0.5, 1.5, n), "bias": lambda n: rng.normal(0, 0.1, n),
+            "running_mean": lambda n: rng.normal(0, 0.1, n),
+            "running_var": lambda n: rng.uniform(0.5, 1.5, n)}
+    out = dict(state)
+    for k, v in state.items():
+        part = k.rsplit(".", 1)
+        if ".bn." in k and part[1] in draw:
+            out[k] = torch.from_numpy(draw[part[1]](v.numel()).astype(np.float32)).view(v.shape)
+    return out
+
+
+def dp_train_argv(work: Path, rank: int, port: int) -> list:
+    """``tools/train.py`` as a user calls it on one rank of two machines."""
+    return ["-f", f"cfgs/{EVAL_CONFIG}.py", "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
+            "--num_machines", "2", "--machine_rank", str(rank),
+            "--dist-url", f"tcp://127.0.0.1:{port}", "--dist-backend", "gloo",
+            "-expn", "dp", "-c", str(work / "init.pth"),
+            "data_dir", str(work), "output_dir", str(work / "runs"),
+            "test_conf", str(TRAIN_TEST_CONF), "max_epoch", "1", "no_aug_epochs", "1",
+            "warmup_epochs", "1", "data_num_workers", "0", "random_size", "None",
+            "save_history_ckpt", "False", "print_interval", "3", "seed", str(SEED)]
+
+
+def dp_rank_main(argv) -> int:
+    """One rank process of phase ``data_parallel``:
+    ``chip_smoke.py --dp-rank RANK WORK BACKEND CARD STEP_PORT [TRAIN_PORT EVAL_PORT]``.
+    Joins a group of two over ``BACKEND`` on card ``CARD`` and runs the
+    step of every case of ``DP_CASES`` (``dp_step``; rank 1 keeps only the
+    digests of its states); with the train ports, then runs
+    ``tools/train.py`` as rank RANK of two machines (its own group) and the
+    sharded eval of its EMA model once more (a third group) to gather the
+    COCO rows. Writes ``WORK/rank{RANK}_{BACKEND}.pth``."""
+    import torch
+
+    from streamyolo_torch import parallel
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.tools import train as train_tool
+
+    rank, work, backend, card, step_port = (int(argv[0]), Path(argv[1]), argv[2], int(argv[3]),
+                                            int(argv[4]))
+    device = parallel.init_distributed(backend, f"tcp://127.0.0.1:{step_port}", 2, rank,
+                                       local_rank=card, timeout_s=DP_TIMEOUT_S)
+    out = {"steps": {}}
+    try:
+        for case, (carried, dtype) in DP_CASES.items():
+            step = dp_step(work, device, rank, 2, dtype=dtype, carried=carried,
+                           repeat=case == "seeded_float32")
+            if rank:
+                del step["state"]
+            out["steps"][case] = step
+            torch.cuda.empty_cache()
+    finally:
+        parallel.destroy()
+    if len(argv) > 5:
+        train_port, eval_port = int(argv[5]), int(argv[6])
+        load_frame = SplitFrames(**train_synths())  # the parent wrote the jsons
+        nms_keep.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_tool.main(dp_train_argv(work, rank, train_port), load_frame=load_frame)
+        torch.cuda.synchronize()
+        out["train"] = {"wall_s": time.perf_counter() - t0, "b1_launches": nms_keep.launches,
+                        "eval_batches": len(trainer.evaluator.dataloader),
+                        "eval_images": len(trainer.evaluator.dataloader.dataset),
+                        "eval_history": trainer.eval_history, "steps": trainer.state.step,
+                        "step_ms": [ms for _, ms, _ in trainer.step_log],
+                        "state": dp_state_of(trainer.state)}
+        parallel.init_distributed("gloo", f"tcp://127.0.0.1:{eval_port}", 2, rank,
+                                  local_rank=card, timeout_s=DP_TIMEOUT_S)
+        try:
+            fwd = trainer.exp.get_forward_fn(trainer.eval_model)
+            (ap, ap50, _), rows = trainer.evaluator.evaluate(fwd, return_outputs=True)
+        finally:
+            parallel.destroy()
+        out["gathered"] = {"ap": float(ap), "ap50": float(ap50), "rows": rows}
+    torch.save(out, work / f"rank{rank}_{backend}.pth")
+    return 0
+
+
+def dp_ranks(work: Path, backend: str, cards, train: bool) -> list:
+    """Run the two rank processes of ``dp_rank_main`` to their end (their
+    output in ``work/rank{r}_{backend}.log``); any non-zero exit or a
+    timeout fails; returns their results and logs."""
+    from streamyolo_torch.parallel import free_local_port
+
+    ports = [str(free_local_port()) for _ in range(3 if train else 1)]
+    procs, logs = [], []
+    try:
+        for rank in (0, 1):
+            log = open(work / f"rank{rank}_{backend}.log", "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank),
+                 str(work), backend, str(cards[rank]), *ports],
+                cwd=str(Path(__file__).resolve().parent), stdout=log,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"data_parallel: {backend} rank {rank} exited {p.returncode}:\n"
+                                 f"{text[-3000:]}")
+    import torch
+
+    return [torch.load(work / f"rank{r}_{backend}.pth", weights_only=False) for r in (0, 1)], texts
+
+
+def dp_compare(ranks: list, case: str, single: dict, single64: dict) -> dict:
+    """The two ranks' step of ``case`` against each other (bitwise) and
+    against one process over the whole batch in the same dtype (``single``):
+    ``num_fg``, the loss, and per tensor normwise. The weights, BatchNorm
+    statistics and EMA (``state_*``) apart from the momentum buffers (this
+    step's gradients), which are also held by their distance from the
+    float64 step (``single64``) beside the one process's
+    (``momentum_excess``)."""
+    s0, s1 = ranks[0]["steps"][case], ranks[1]["steps"][case]
+    ref = single["metrics"]
+    rel = dp_normwise(s0["state"], single["state"])
+    state_rel = {k: v for k, v in rel.items() if not k.startswith("momentum.")}
+    mom_rel = {k: v for k, v in rel.items() if k.startswith("momentum.")}
+    dp64 = dp_normwise(s0["state"], single64["state"])
+    one64 = dp_normwise(single["state"], single64["state"])
+    excess = {k: dp64[k] - one64[k] for k in mom_rel}
+    worst, worst_m, worst_e = (max(d, key=d.get) for d in (state_rel, mom_rel, excess))
+    return {"ranks_bitwise": s0["digest"] == s1["digest"] and s0["metrics"] == s1["metrics"],
+            "num_fg_equal": s0["metrics"]["num_fg"] == ref["num_fg"],
+            "num_fg": ref["num_fg"],
+            "loss_rel": abs(s0["metrics"]["total_loss"] - ref["total_loss"])
+            / abs(ref["total_loss"]),
+            "state_normwise_max": state_rel[worst], "state_normwise_worst": worst,
+            "state_tensors": len(state_rel),
+            "momentum_normwise_max": mom_rel[worst_m], "momentum_normwise_worst": worst_m,
+            "momentum_excess_max": excess[worst_e], "momentum_excess_worst": worst_e,
+            "momentum_vs_float64": [dp64[worst_e], one64[worst_e]],
+            "momentum_tensors": len(mom_rel),
+            "normwise_median": statistics.median(rel.values()),
+            "step_ms_by_rank": [s0["ms"], s1["ms"]],
+            "repeats_bitwise_by_rank": [s0["repeats_bitwise"], s1["repeats_bitwise"]]}
+
+
+def dp_ok(c: dict) -> bool:
+    """The stated bounds of a two-rank float32 step: ``num_fg`` equal, the
+    loss rel 1e-4, the weights, BatchNorm statistics and EMA normwise 1e-3,
+    the momentum no more than 1e-3 farther from float64 than one process's,
+    the ranks bitwise equal."""
+    return (c["num_fg_equal"] and c["loss_rel"] <= 1e-4 and c["state_normwise_max"] <= 1e-3
+            and c["momentum_excess_max"] <= 1e-3 and c["ranks_bitwise"])
+
+
+def dp_ok64(c: dict) -> bool:
+    """The stated bounds of a two-rank float64 step: ``num_fg`` equal, the
+    loss rel 1e-4, every tensor, the momentum buffers too, normwise within
+    ``DP_FLOAT64_NORMWISE`` of one float64 process, the ranks bitwise
+    equal."""
+    return (c["num_fg_equal"] and c["loss_rel"] <= 1e-4 and c["ranks_bitwise"]
+            and max(c["state_normwise_max"], c["momentum_normwise_max"]) <= DP_FLOAT64_NORMWISE)
+
+
+def phase_data_parallel(work: Path, smi: str) -> dict:
+    """Data-parallel training through ``streamyolo_torch/parallel`` at full
+    width (StreamYOLO-l, 600x960) on the card.
+
+    (a) One step (TF32 off) over a global batch of 4 letterboxed synthetic
+    train frames from each of two carried states (the seeded init with
+    seeded or with identity BatchNorm, after one step), in float32 and in
+    float64: two rank processes on the one card over gloo (2 images each)
+    against one process over the 4; and a NCCL group of one on the card.
+    Every case: ``num_fg`` equal, the loss within rel 1e-4, the ranks
+    bitwise equal. Float64: every tensor, momentum buffers too, normwise
+    within ``DP_FLOAT64_NORMWISE`` of one process (the data-parallel
+    algorithm apart from float32 rounding). Float32 from the seeded state:
+    the weights, BatchNorm statistics and EMA normwise within 1e-3 per
+    tensor, each momentum buffer within 1e-3 of the one-process step's
+    distance from the same step in float64 (the one process with its batch
+    reordered already parts from itself by more than 1e-3 on the momentum
+    buffers, reported as ``float32_noise``); from the identity state the
+    float32 gaps are reported. NCCL at world 1 bitwise the step with no
+    group. Over NCCL across two cards where there are two, else reported
+    not run.
+    (b) ``tools/train.py`` as a user calls it, in each of two rank
+    processes (``--num_machines 2 --dist-backend gloo -d 1 -b 8 --fp16``):
+    one epoch at 600x960 on the train phase's frames, the sharded per-epoch
+    eval (B1 in every rank), checkpoints and log from rank 0 only, and rank
+    0's gathered COCO rows against a one-process ``tools/eval.py
+    --no-dedup`` of the checkpoint (both cuDNN off)."""
+    import torch
+
+    from streamyolo_torch import parallel
+    from streamyolo_torch.tools import eval as eval_tool
+    from streamyolo_torch.train import build_lr_schedule, create_train_state, make_train_step
+
+    work.mkdir(parents=True, exist_ok=True)
+    load_frame = train_fixture(work)
+    exp = dp_exp(work)
+    init = train_init(exp)
+    torch.save(init, work / "init.pth")
+    dataset = exp.get_data_loader(batch_size=2, no_aug=True, load_frame=load_frame).dataset
+    random.seed(SEED)  # the pair's mirror coin
+    items = [dataset[i] for i in (0, 5, TRAIN_FRAMES, TRAIN_FRAMES + 5)]
+    np.savez(work / "batch.npz", images=np.stack([it[0] for it in items]),
+             labels=np.stack([it[1][0] for it in items]),
+             support_labels=np.stack([it[1][1] for it in items]))
+
+    # the carried states: the seeded init with seeded or identity
+    # BatchNorm, after one float32 step at 192x320
+    rng = np.random.RandomState(SEED + 7)
+    images = torch.from_numpy(rng.randint(0, 256, (GRAD_BATCH, *GRAD_INPUT, 6), np.uint8))
+    labels, support = (torch.from_numpy(a) for a in synthetic_labels(rng, GRAD_BATCH, GRAD_INPUT))
+    for name, weights in (("seeded", dp_seeded_bn(init)), ("identity", init)):
+        model = exp.get_model("cuda", dtype=torch.float32)
+        model.load_state_dict(weights)
+        state = create_train_state(model)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):  # the same bits whatever ran before
+            make_train_step(NCLS, build_lr_schedule("constant", exp.basic_lr_per_img * DP_BATCH,
+                                                    10, 10))(
+                state, {"images": images.cuda(), "labels": labels.cuda(),
+                        "support_labels": support.cuda()})
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.save(dp_state_of(state), work / f"carried_{name}.pth")
+        del model, state
+        torch.cuda.empty_cache()
+
+    # (a) one process over the 4 images in each case, then a NCCL group of one
+    card = torch.device("cuda", 0)
+    single = {case: dp_step(work, card, dtype=dtype, carried=carried,
+                            repeat=case == "seeded_float32")
+              for case, (carried, dtype) in DP_CASES.items()}
+    torch.cuda.empty_cache()
+    parallel.init_distributed("nccl", f"tcp://127.0.0.1:{parallel.free_local_port()}", 1, 0,
+                              timeout_s=DP_TIMEOUT_S)
+    try:
+        nccl1 = dp_step(work, card)
+        # the step runs no collective at world 1; one all-reduce on the card
+        probe = torch.arange(1024, dtype=torch.float32, device="cuda")
+        nccl1_sum_ok = torch.equal(parallel.all_reduce_sum_(probe.clone()), probe)
+    finally:
+        parallel.destroy()
+    # the float32 noise of the step itself: the same 4 images in another order
+    reordered = dp_step(work, card, order=(2, 3, 0, 1), repeat=False)
+    torch.cuda.empty_cache()
+    gloo, logs = dp_ranks(work, "gloo", (0, 0), train=True)
+    one32, one64 = single["seeded_float32"], single["seeded_float64"]
+    noise = {f"{name}_vs_float64": dp_spread(dp_normwise(state, one64["state"]))
+             for name, state in (("ranks", gloo[0]["steps"]["seeded_float32"]["state"]),
+                                 ("one", one32["state"]), ("reordered", reordered["state"]))}
+    noise["reordered_vs_one"] = dp_spread(dp_normwise(reordered["state"], one32["state"]))
+    noise["num_fg"] = {"reordered": reordered["metrics"]["num_fg"],
+                       "float64": one64["metrics"]["num_fg"]}
+
+    def compare(ranks):
+        return {case: dp_compare(ranks, case, single[case],
+                                 single[f"{DP_CASES[case][0]}_float64"]) for case in DP_CASES}
+
+    a = {"gloo_one_card": compare(gloo),
+         "one_process": {case: {"num_fg": r["metrics"]["num_fg"],
+                                "total_loss": r["metrics"]["total_loss"], "step_ms": r["ms"],
+                                "repeats_bitwise": r["repeats_bitwise"]}
+                         for case, r in single.items()},
+         "nccl_world1_bitwise_no_group": nccl1["digest"] == one32["digest"]
+         and nccl1["metrics"] == one32["metrics"], "nccl_world1_step_ms": nccl1["ms"],
+         "nccl_world1_all_reduce_ok": nccl1_sum_ok, "float32_noise": noise}
+    del single, reordered, nccl1
+    if torch.cuda.device_count() >= 2:
+        nccl2, _ = dp_ranks(work, "nccl", (0, 1), train=False)
+        a["nccl_two_cards"] = compare(nccl2)
+    else:
+        a["nccl_two_cards"] = "not run: one card"
+        print("data_parallel: NCCL across two cards not run (one card)", flush=True)
+
+    # (b) the CLI: writes from rank 0 only; the gathered rows against one process
+    run_dir = work / "runs" / "dp"
+    names = sorted(p.name for p in run_dir.iterdir())
+    train0, train1 = gloo[0]["train"], gloo[1]["train"]
+    cli = eval_tool.main(["-f", f"cfgs/{EVAL_CONFIG}.py", "-c", str(run_dir / "latest_ckpt.pth"),
+                          "-b", str(TRAIN_BATCH), "--fp16", "--no-dedup", "-expn", "dp_eval",
+                          "data_dir", str(work), "output_dir", str(work / "runs"),
+                          "test_conf", str(TRAIN_TEST_CONF), "data_num_workers", "0"],
+                         load_frame=load_frame)
+
+    def key(row):
+        return (row["image_id"], row["category_id"], -row["score"], row["bbox"])
+
+    rows0 = sorted(gloo[0]["gathered"]["rows"], key=key)
+    rows_one = sorted(cli["rows"], key=key)
+    rows_equal = rows0 == rows_one
+    exp16 = dp_exp(work)
+    exp16.compute_dtype = "bfloat16"
+    box_tol, score_tol = exp16.dedup_tolerance()
+    gap = matched_rows(rows0, rows_one)
+    gap["box_max_model_px"] = gap["box_max_abs"] / (2 * INPUT[1] / exp16.test_size[1])
+    b = {"steps": train0["steps"], "eval_images_by_rank": [train0["eval_images"],
+                                                           train1["eval_images"]],
+         "b1_launches_by_rank": [train0["b1_launches"], train1["b1_launches"]],
+         "eval_batches_by_rank": [train0["eval_batches"], train1["eval_batches"]],
+         "run_dir": names, "rank0_wrote": "Save weights to" in logs[0],
+         "rank1_wrote": "Save weights to" in logs[1],
+         "ranks_bitwise": dp_same(train0["state"], train1["state"]),
+         "epoch_ap": [train0["eval_history"][-1]["ap"], train1["eval_history"][-1]["ap"]],
+         "gathered_ap": gloo[0]["gathered"]["ap"], "one_process_ap": cli["ap"],
+         "rows": len(rows0), "rows_one_process": len(rows_one), "rows_equal": rows_equal,
+         "rows_matched": gap,
+         "step_ms_by_rank": [statistics.median(train0["step_ms"][1:]),
+                             statistics.median(train1["step_ms"][1:])],
+         "wall_s_by_rank": [train0["wall_s"], train1["wall_s"]]}
+    emit("data_parallel", config=EVAL_CONFIG, model=f"StreamYOLO-{MODEL_SIZE}",
+         input=list(INPUT), nvidia_smi=smi,
+         step={"dtype": "float32 and float64, TF32 off, cuDNN deterministic",
+               "global_batch": DP_BATCH, "ranks": 2, "float64_bound": DP_FLOAT64_NORMWISE, **a},
+         cli={"flags": "--num_machines 2 --dist-backend gloo -d 1 -b 8 --fp16", **b},
+         note="gloo on one card stages every collective through the host and runs two "
+              "processes on one card: its step times are no measure of scaling")
+
+    for where, cases in (("gloo on one card", a["gloo_one_card"]),
+                         ("NCCL across two cards", a["nccl_two_cards"])):
+        if not isinstance(cases, dict):
+            continue
+        for case, c in cases.items():
+            what = f"data_parallel: {where}, {case}: {c}"
+            check(c["num_fg_equal"], f"{what}: SimOTA's num_fg flipped")
+            check(c["ranks_bitwise"] and c["loss_rel"] <= 1e-4, what)
+            if case.endswith("float64"):
+                check(dp_ok64(c), what)
+        check(dp_ok(cases["seeded_float32"]), f"data_parallel: {where}: {cases['seeded_float32']}")
+    check(a["nccl_world1_bitwise_no_group"] and a["nccl_world1_all_reduce_ok"],
+          "data_parallel: NCCL at world 1 differs from no group")
+    check(b["steps"] == TRAIN_SEQS * TRAIN_FRAMES // TRAIN_BATCH, f"data_parallel: {b['steps']} steps")
+    check(b["ranks_bitwise"], "data_parallel: the CLI's ranks end with different states")
+    check(b["b1_launches_by_rank"] == b["eval_batches_by_rank"] and min(b["eval_batches_by_rank"]) > 0,
+          f"data_parallel: B1 launches {b['b1_launches_by_rank']} for eval batches "
+          f"{b['eval_batches_by_rank']}")
+    check(sum(b["eval_images_by_rank"]) == EVAL_SEQS * EVAL_FRAMES,
+          f"data_parallel: the eval shards hold {b['eval_images_by_rank']} images")
+    check(b["rank0_wrote"] and not b["rank1_wrote"]
+          and {"latest_ckpt.pth", "last_epoch_ckpt.pth", "train_log.txt"} <= set(names),
+          f"data_parallel: writes {names}, rank 0 {b['rank0_wrote']}, rank 1 {b['rank1_wrote']}")
+    check(b["epoch_ap"][1] == 0.0 and b["epoch_ap"][0] == b["gathered_ap"],
+          f"data_parallel: epoch AP {b['epoch_ap']} against the gathered {b['gathered_ap']}")
+    check(len(rows0) > 0 and (rows_equal or (gap["box_max_model_px"] <= box_tol
+                                             and gap["score_max_abs"] <= score_tol
+                                             and gap["unmatched_share"] <= E2E_UNMATCHED_MAX)),
+          f"data_parallel: gathered rows against one process: {gap}")
+    return {"launches": sum(b["b1_launches_by_rank"]),
+            "launches_by_rank": b["b1_launches_by_rank"]}
 
 
 def lifted_state(exp):
@@ -1696,7 +2197,7 @@ def phase_trained_e2e(out_dir: Path) -> dict:
 
     t0 = time.perf_counter()
     trainer = counted("train", lambda: train_tool.main(
-        ["-f", str(cfg), "-b", str(E2E_BATCH), "--fp16", "-expn", "tiny", *data_opts,
+        ["-f", str(cfg), "-b", str(E2E_BATCH), "--fp16", "-d", "1", "-expn", "tiny", *data_opts,
          "max_epoch", str(E2E_EPOCHS), "no_aug_epochs", str(E2E_EPOCHS),
          "eval_interval", str(E2E_EPOCHS + 1), "warmup_epochs", "1", "scheduler", "warmcos",
          "basic_lr_per_img", str(E2E_LR_PER_IMG), "save_history_ckpt", "False",
@@ -1816,7 +2317,9 @@ def new_path_launches(kernel: str, cli: dict, streamer: dict, trained: dict) -> 
     return out
 
 
-def main() -> int:
+def main(only: str = None) -> int:
+    """The whole script; ``only="data_parallel"`` runs the device line, the
+    build and that phase alone (for work on it), and prints no result."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1848,6 +2351,9 @@ def main() -> int:
     ptxas = {name: ptxas_by_kernel(r["log"]) for name, r in report.items()}
     emit("build", seconds=build_s, per_source={n: r["seconds"] for n, r in report.items()},
          ptxas=ptxas)
+    if only == "data_parallel":
+        phase_data_parallel(Path(__file__).resolve().parent / "build" / "chip_smoke_dp", smi)
+        return 0
 
     # 3. B1 against its plain versions (fixed point on the card, sweep on the CPU)
     nms_checked, nms_mismatch, nms_err = 0, 0, 0.0
@@ -2067,6 +2573,9 @@ def main() -> int:
     # 10. a tiny model trained by the port, scored offline, streaming and forecast
     trained = phase_trained_e2e(root / "chip_smoke_trained")
 
+    # 11. data-parallel training: two rank processes (B1 in each rank's eval)
+    dp = phase_data_parallel(root / "chip_smoke_dp", smi)
+
     # B1 at the serving shapes: the candidates of a real steady step
     with torch.inference_mode():
         preds, _ = model(img_host.to(torch.bfloat16), buffer=host._buffer, mode="on_pipe")
@@ -2127,7 +2636,9 @@ def main() -> int:
                               "offline_eval_dedup": offline["launches"]["dedup"]["nms"],
                               "offline_eval_no_dedup": offline["launches"]["no_dedup"]["nms"],
                               "train": train["launches"]["nms"],
-                              **new_path_launches("nms", cli, streamer, trained)},
+                              **new_path_launches("nms", cli, streamer, trained),
+                              "data_parallel_eval": dp["launches"],
+                              "data_parallel_eval_by_rank": dp["launches_by_rank"]},
          "eval_k1000": offline["times"],
          "batch8": {"shape": f"B=8 K={b8_boxes.shape[1]} valid={int(b8_valid.sum())}, "
                              "candidates of a real multi-stream step",
@@ -2176,4 +2687,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # a rank of phase data_parallel
+        sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:] == ["--only", "data_parallel"]:
+        sys.exit(main(only="data_parallel"))
     sys.exit(main())

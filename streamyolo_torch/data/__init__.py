@@ -16,6 +16,7 @@ from streamyolo_torch.data.loader import (
     DataLoader,
     DevicePrefetcher,
     InfiniteSampler,
+    ShardDataset,
     YoloBatchSampler,
     worker_init_reset_seed,
 )
@@ -30,7 +31,8 @@ from streamyolo_torch.data.transforms import (
 
 __all__ = ["ARGOVERSE_CLASSES", "COCO", "COCO_SUBSET", "DataLoader", "DevicePrefetcher",
            "DoubleTrainTransform", "DoubleValTransform", "InfiniteSampler", "MosaicDetection",
-           "ONE_ARGOVERSEDataset", "STILL_ARGOVERSEDataset", "StillMosaicDetection",
+           "ONE_ARGOVERSEDataset", "STILL_ARGOVERSEDataset", "ShardDataset",
+           "StillMosaicDetection",
            "SyntheticArgoverse", "TWO_ARGOVERSEDataset", "TrainTransform", "ValTransform",
            "YoloBatchSampler", "db_from_img_folder", "imread", "make_synthetic_argoverse",
            "preproc", "pseudo_gt_from_detections", "worker_init_reset_seed"]

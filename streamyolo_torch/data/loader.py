@@ -1,7 +1,8 @@
 """Host-side data loading, the counterpart of
 ``streamyolo_tpu/data/loader.py``: ``torch.utils.data.DataLoader`` with the
 NumPy collate, the seeded infinite sampler and the mosaic-flag batch
-sampler of yolox, and the CUDA prefetcher.
+sampler of yolox, the strided eval shard of a rank, and the CUDA
+prefetcher.
 
 Batches stay uint8 (images) and float32 (labels) NumPy arrays on the host;
 ``DevicePrefetcher`` pins them and copies them to the card on a side
@@ -125,6 +126,29 @@ class _IndexUnpackDataset(torch.utils.data.Dataset):
         return getattr(self.dataset, name)
 
 
+class ShardDataset(torch.utils.data.Dataset):
+    """Rank ``rank``'s strided shard of a dataset for the sharded eval (the
+    role of ``DistributedSampler(shuffle=False)``): indices ``rank,
+    rank + world, rank + 2 * world, ...``. Attribute access forwards to the
+    dataset (the evaluators read ``coco`` / ``class_ids`` through it)."""
+
+    def __init__(self, dataset, rank: int, world_size: int):
+        self.dataset = dataset
+        self._rank = rank
+        self._world = world_size
+
+    def __len__(self):
+        return (len(self.dataset) - self._rank + self._world - 1) // self._world
+
+    def __getitem__(self, idx):
+        return self.dataset[self._rank + idx * self._world]
+
+    def __getattr__(self, name):
+        if name == "dataset":  # see _IndexUnpackDataset.__getattr__
+            raise AttributeError(name)
+        return getattr(self.dataset, name)
+
+
 class DevicePrefetcher:
     """Keeps one batch in flight: a background thread pulls the next
     collated batch from the loader, pins it, and copies it to the card with
@@ -139,7 +163,10 @@ class DevicePrefetcher:
     raised on the caller's thread. ``__init__`` is re-entrant: calling it
     again (the trainer's restart) first joins the preload in flight.
     ``close()`` joins it too and drops its result, after which ``next()``
-    returns ``None``. On a CPU device the batches are plain CPU tensors."""
+    returns ``None``. On a CPU device the batches are plain CPU tensors.
+    A bare ``"cuda"`` means the caller's current card, resolved here (the
+    preload thread's own current card is card 0), so a rank that set its
+    card copies to it."""
 
     def __init__(self, loader, device="cuda"):
         prior = getattr(self, "_thread", None)
@@ -149,6 +176,8 @@ class DevicePrefetcher:
 
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
+        if self._cuda and self._device.index is None:
+            self._device = torch.device("cuda", torch.cuda.current_device())
         self._stream = torch.cuda.Stream(self._device) if self._cuda else None
         self._it = iter(loader)
         self._thread: Optional[threading.Thread] = None

@@ -17,8 +17,11 @@ at ``pre_nms_topk=1000`` (kernel B1 once per batch on the card), one
 meters are the reference's: forward (synchronised) and NMS (postprocess,
 copy and unpack), per image over all batches but the last.
 
-Multi-process evaluation (the gather to rank 0) waits for the port's
-data-parallel slice; ``evaluate(distributed=True)`` raises.
+Multi-process evaluation (``distributed``, by default whenever a process
+group of more than one rank is up, as ``get_eval_loader`` then shards the
+val set): every rank's detection list is all-gathered and the timing
+meters summed (``parallel/multihost.py``); only the main process runs
+COCOeval, the others return ``(0.0, 0.0, None)``.
 """
 
 from __future__ import annotations
@@ -100,11 +103,19 @@ class _StreamEvaluatorBase:
         ``forward_fn``: NHWC uint8 batch (NumPy) -> decoded predictions
         ``[B, N, 5 + num_classes]`` (obj/cls sigmoided), a tensor on the
         model's device; with ``needs_ids`` it also takes the batch's ids.
-        ``distributed``: ``None`` or ``False`` (one process)."""
-        if distributed:
-            raise NotImplementedError(
-                "multi-process evaluation (gathering detections to rank 0) is not "
-                "ported yet (ROADMAP queue A item 14); evaluate in one process")
+        ``distributed``: gather every rank's detections before COCOeval;
+        ``None`` means whenever a process group of more than one rank is
+        up (sharded data without the gather would score each rank's shard
+        alone). Off the main process it returns ``(0.0, 0.0, None)``."""
+        from streamyolo_torch.parallel import (
+            all_gather_objects,
+            get_world_size,
+            is_main_process,
+            psum_stats,
+        )
+
+        if distributed is None:
+            distributed = get_world_size() > 1
 
         data_list: List[dict] = []
         inference_time = 0.0
@@ -153,7 +164,14 @@ class _StreamEvaluatorBase:
                 "pre_nms_topk if the COCO rows matter at this density",
                 n_saturated, self.confthre)
         statistics = np.array([inference_time, nms_time, n_samples])
-        eval_results = self.evaluate_prediction(data_list, statistics)
+        if distributed:
+            data_list = list(itertools.chain(*all_gather_objects(data_list)))
+            statistics = psum_stats(statistics)
+        if distributed and not is_main_process():
+            self._set_times(statistics)
+            eval_results = (0.0, 0.0, None)
+        else:
+            eval_results = self.evaluate_prediction(data_list, statistics)
         if return_outputs:
             return eval_results, data_list
         return eval_results
@@ -169,18 +187,22 @@ class _StreamEvaluatorBase:
     def convert_to_coco_format(self, outputs, info_imgs, ids):
         raise NotImplementedError
 
-    def evaluate_prediction(self, data_dict, statistics):
-        """(AP, AP50, summary) by the native COCOeval; the timing meters per
-        image in ms head the summary."""
-        logger = get_logger()
-        logger.info("Evaluate in main process...")
-
+    def _set_times(self, statistics) -> None:
+        """``last_times_ms``: the forward and NMS meters per image in ms."""
         inference_time, nms_time, n_samples = statistics
         bs = getattr(self.dataloader, "batch_size", None) or 1
         a_infer_time = 1000 * inference_time / (n_samples * bs)
         a_nms_time = 1000 * nms_time / (n_samples * bs)
         self.last_times_ms = {"forward": a_infer_time, "NMS": a_nms_time,
                               "inference": a_infer_time + a_nms_time}
+
+    def evaluate_prediction(self, data_dict, statistics):
+        """(AP, AP50, summary) by the native COCOeval; the timing meters per
+        image in ms head the summary."""
+        logger = get_logger()
+        logger.info("Evaluate in main process...")
+
+        self._set_times(statistics)
         info = ", ".join(f"Average {k} time: {v:.2f} ms"
                          for k, v in self.last_times_ms.items()) + "\n"
 

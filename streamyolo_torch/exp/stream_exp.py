@@ -20,6 +20,11 @@ over the train split, the seeded infinite sampler), the LR schedule, the
 10-step window from a NumPy ``RandomState`` seeded by (seed, window), and
 ``preprocess`` resizes a batch on its device with ``F.interpolate``
 (bilinear, no antialiasing) and scales the cxcywh labels.
+
+Under a process group of W > 1 ranks (``parallel/``), the train loader of
+each rank yields ``batch // W`` images from the rank-strided sampler, and
+the val loader reads the rank's strided shard (``ShardDataset``), whose
+detections the evaluator gathers, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -170,9 +175,12 @@ class StreamExp(BaseExp):
         """The train loader: the train split through the mosaic wrapper's
         non-mosaic branch (shared-flip mirror, letterbox, 120 labels),
         batches from ``InfiniteSampler`` seeded by ``seed`` (0 if unset).
-        ``load_frame`` supplies the pixels as in ``get_eval_loader``. The
-        mosaic branch (``no_aug=False``), ``cache_img`` and a distributed
-        loader are not ported yet and raise."""
+        ``batch_size`` is the global batch: under a process group each rank
+        loads ``batch_size // world`` (the division must be exact) from the
+        sampler strided by its rank, as the JAX package does whatever
+        ``is_distributed`` says. ``load_frame`` supplies the pixels as in
+        ``get_eval_loader``. The mosaic branch (``no_aug=False``) and
+        ``cache_img`` are not ported yet and raise."""
         from streamyolo_torch.data.datasets import CACHE_MESSAGE
         from streamyolo_torch.data.loader import (
             DataLoader,
@@ -187,10 +195,8 @@ class StreamExp(BaseExp):
             StillMosaicDetection,
         )
         from streamyolo_torch.data.transforms import DoubleTrainTransform, TrainTransform
+        from streamyolo_torch.parallel import get_rank, get_world_size, local_batch_size
 
-        if is_distributed:
-            raise NotImplementedError(
-                "distributed training is not ported yet (ROADMAP queue A item 14)")
         if not no_aug:
             raise NotImplementedError(MOSAIC_MESSAGE)
         if cache_img:
@@ -210,8 +216,10 @@ class StreamExp(BaseExp):
             shear=self.shear, perspective=0.0, enable_mixup=self.enable_mixup,
             mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob)
         self.dataset = dataset
-        sampler = InfiniteSampler(len(dataset), seed=self.seed if self.seed else 0)
-        batch_sampler = YoloBatchSampler(sampler=sampler, batch_size=batch_size,
+        sampler = InfiniteSampler(len(dataset), seed=self.seed if self.seed else 0,
+                                  rank=get_rank(), world_size=get_world_size())
+        batch_sampler = YoloBatchSampler(sampler=sampler,
+                                         batch_size=local_batch_size(batch_size),
                                          drop_last=False, mosaic=not no_aug)
         return DataLoader(_IndexUnpackDataset(dataset), num_workers=self.data_num_workers,
                           batch_sampler=batch_sampler, worker_init_fn=worker_init_reset_seed)
@@ -221,19 +229,22 @@ class StreamExp(BaseExp):
                         load_frame: Optional[Callable[[dict], np.ndarray]] = None):
         """The val loader in dataset order (shuffle off). ``load_frame``
         (image dict -> BGR uint8) supplies the pixels; by default they are
-        read from ``data_dir`` with cv2."""
-        from streamyolo_torch.data.loader import DataLoader
+        read from ``data_dir`` with cv2. Under a process group of more than
+        one rank the loader reads the rank's strided shard of the val set,
+        as the JAX package's does whatever ``is_distributed`` says (its
+        evaluator gathers the detections)."""
+        from streamyolo_torch.data.loader import DataLoader, ShardDataset
         from streamyolo_torch.data.transforms import DoubleValTransform, ValTransform
+        from streamyolo_torch.parallel import get_rank, get_world_size
 
-        if is_distributed:
-            raise NotImplementedError(
-                "sharded evaluation is not ported yet (ROADMAP queue A item 14)")
         double = self.dataset_name in ("one", "two")
         valdataset = self._dataset_cls()(
             data_dir=self.data_dir, json_file=self.val_ann, name="val",
             img_size=self.test_size,
             preproc=DoubleValTransform() if double else ValTransform(),
             load_frame=load_frame)
+        if get_world_size() > 1:
+            valdataset = ShardDataset(valdataset, get_rank(), get_world_size())
         return DataLoader(valdataset, num_workers=self.data_num_workers,
                           batch_size=batch_size, shuffle=False)
 

@@ -10,7 +10,11 @@ of ``streamyolo_tpu/models/losses.py``.
   * plain (PIPE head, the STILL config): the same without the weighting.
 
 Everything is a function of (raw per-level head maps, padded labels), with
-no host synchronisation. The maps are flattened and cast to float32 first,
+no host synchronisation. Under a process group of more than one rank the
+four batch-wide normalizers (``num_fg``, ``num_gts`` and the two TAL weight
+sums) are sums over the ranks, taken by one all-reduce of a packed vector
+(no gradient flows through them), so each rank's loss terms are its share
+of the global batch's; SimOTA stays per image. The maps are flattened and cast to float32 first,
 so a caller that ran the model under ``torch.autocast`` computes the
 assignment and the loss in float32, as the JAX package does.
 """
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 from streamyolo_torch.models.assign import simota_assign_batch
 from streamyolo_torch.models.heads import _device_grids, flatten_levels
 from streamyolo_torch.ops.boxes import pairwise_iou
+from streamyolo_torch.parallel.multihost import all_reduce_sum_, get_world_size
 
 REG_WEIGHT = 5.0
 
@@ -74,11 +79,16 @@ def _get_l1_target(reg_target, anchor_xy, anchor_strides, eps: float = 1e-8):
     return torch.cat([xy, wh], dim=-1)
 
 
-def _normalized_weight(weight, loss, fg):
-    """``w * sum(L) / sum(w * L)`` over the batch's foreground, detached."""
+def _weight_sums(weight, loss, fg) -> torch.Tensor:
+    """``[sum(L), sum(w * L)]`` over the batch's foreground, detached."""
     with torch.no_grad():
-        loss_sum = torch.sum(loss * fg)
-        wl_sum = torch.sum(weight * loss * fg)
+        return torch.stack([torch.sum(loss * fg), torch.sum(weight * loss * fg)])
+
+
+def _normalized_weight(weight, sums):
+    """``w * sum(L) / sum(w * L)`` from ``_weight_sums``, detached."""
+    with torch.no_grad():
+        loss_sum, wl_sum = sums
         ratio = torch.where(wl_sum > 0, loss_sum / torch.clamp(wl_sum, min=1e-20),
                             torch.ones_like(wl_sum))
         return weight * ratio
@@ -124,7 +134,10 @@ def streamyolo_losses(
     float dtype; ``labels``: [B, M, 5] (cls, cx, cy, w, h) zero-padded, the
     next frame's gt; ``support_labels``: the current frame's gt (TAL), or
     None for the plain loss. Returns the reference's loss dict: total_loss,
-    iou_loss, conf_loss, cls_loss, l1_loss, num_fg (0-d tensors)."""
+    iou_loss, conf_loss, cls_loss, l1_loss, num_fg (0-d tensors). Under a
+    process group of more than one rank the loss terms are this rank's
+    shares (their sum over the ranks is the global batch's loss) and
+    ``num_fg`` is the global ratio."""
     flat, bbox_preds, anchor_xy, anchor_strides = _decode(outputs, strides)
     labels = labels[..., :5].float()  # mixup's label_cut rule
     if support_labels is not None:
@@ -136,8 +149,7 @@ def streamyolo_losses(
     assign = simota_assign_batch(labels, bbox_preds.detach(), obj_logits.detach(),
                                  cls_logits.detach(), anchor_xy, anchor_strides, num_classes)
     fg = assign.fg_mask.float()  # [B, N]
-    num_fg = torch.clamp(assign.num_fg.sum(), min=1.0)
-    num_gts = torch.clamp(assign.num_gt.sum(), min=1.0)
+    counts = torch.stack([assign.num_fg.sum(), assign.num_gt.sum()])
 
     # per-anchor targets from the matched gts
     matched_labels = torch.gather(labels, 1, assign.matched_gt[..., None].expand(-1, -1, 5))
@@ -159,10 +171,21 @@ def streamyolo_losses(
             raise ValueError("the TAL loss needs support_labels")
         weight = _tal_weights(labels, support_labels, assign.matched_gt, gamma, ignore_thr,
                               ignore_value)
-        w_iou = _normalized_weight(weight, loss_iou_el, fg)
+        sums = [counts, _weight_sums(weight, loss_iou_el, fg)]
+        if use_l1:
+            sums.append(_weight_sums(weight[..., None], loss_l1_el, fg[..., None]))
+    else:
+        sums = [counts]
+    if get_world_size() > 1:  # the batch-wide sums over every rank's images
+        sums = list(all_reduce_sum_(torch.cat(sums)).view(-1, 2))
+    num_fg = torch.clamp(sums[0][0], min=1.0)
+    num_gts = torch.clamp(sums[0][1], min=1.0)
+
+    if use_tal:
+        w_iou = _normalized_weight(weight, sums[1])
         loss_iou = torch.sum(w_iou * loss_iou_el * fg) / num_fg
         if use_l1:
-            w_l1 = _normalized_weight(weight[..., None], loss_l1_el, fg[..., None])
+            w_l1 = _normalized_weight(weight[..., None], sums[2])
             loss_l1 = torch.sum(w_l1 * loss_l1_el * fg[..., None]) / num_fg
         else:
             loss_l1 = zero

@@ -20,6 +20,9 @@ BatchNorm: eps=1e-3, torch momentum 0.03 (the JAX package's flax momentum
 0.97 is the weight of the old statistic). In training, ``BatchNorm2d``
 moves the running variance by the *biased* batch variance, as flax does;
 ``torch.nn.BatchNorm2d`` would use the unbiased one, n / (n - 1) larger.
+Under a process group of more than one rank, training BatchNorm takes its
+statistics over the global batch (``parallel/``), as the JAX package's
+BatchNorm does under its data mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from streamyolo_torch.ops.int8_conv import int8_conv
+from streamyolo_torch.parallel.multihost import all_reduce_sum_, get_rank, get_world_size
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -46,6 +50,64 @@ def get_activation(name: str = "silu") -> nn.Module:
     raise AttributeError(f"Unsupported act type: {name}")
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the batch of every rank of the process group:
+    the output, input gradient and local weight / bias gradients of
+    ``F.batch_norm`` over the ranks' batches concatenated (each rank then
+    holds its share of the weight and bias gradients, which the step's
+    gradient all-reduce sums).
+
+    Forward: each rank's (count, mean, M2) per channel, from
+    ``torch.var_mean``, goes into its row of a zero [world, 3, C] float64
+    block; one all-reduce gathers the rows and every rank merges them alike
+    (Chan's parallel rule), so the global mean and biased variance carry no
+    ``E[x^2] - E[x]^2`` cancellation and are the same bits on every rank.
+    Backward: one all-reduce of the per-channel sums of ``dy`` and
+    ``dy * x_hat``; ``dx = w / sigma * (dy - mean(dy) - x_hat * mean(dy *
+    x_hat))`` with the global means. The local reductions and the
+    transform run in float32, or float64 for a float64 input; the merge in
+    float64; the output in the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, world: int, rank: int):
+        c = x.shape[1]
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(ct)
+        var_l, mean_l = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        n_l = xf.numel() // c
+        rows = xf.new_zeros((world, 3, c), dtype=torch.float64)
+        rows[rank, 0] = n_l
+        rows[rank, 1] = mean_l
+        rows[rank, 2] = var_l.double() * n_l
+        all_reduce_sum_(rows)
+        counts, means, m2s = rows.unbind(1)
+        n = counts.sum(0)
+        mean = (counts * means).sum(0) / n
+        var = (m2s + counts * (means - mean) ** 2).sum(0) / n
+        mean_c, var_c = mean.to(ct), var.to(ct)
+        invstd = torch.rsqrt(var + eps).to(ct)
+        scale = invstd * weight.to(ct)
+        y = (xf - mean_c[:, None, None]) * scale[:, None, None] + bias.to(ct)[:, None, None]
+        ctx.save_for_backward(x, weight, mean_c, invstd, n)
+        ctx.mark_non_differentiable(mean_c, var_c)
+        return y.to(x.dtype), mean_c, var_c
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        ct = mean.dtype
+        xhat = (x.to(ct) - mean[:, None, None]) * invstd[:, None, None]
+        dyf = dy.to(ct)
+        sums = torch.stack([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        dbias, dweight = sums.clone()  # this rank's shares
+        all_reduce_sum_(sums)
+        g_dy, g_dyx = (sums.double() / n).to(ct)
+        dx = (dyf - g_dy[:, None, None] - xhat * g_dyx[:, None, None]) \
+            * (invstd * weight.to(ct))[:, None, None]
+        return (dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype),
+                None, None, None)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training step updates the running statistics
     as flax's ``nn.BatchNorm`` does: by the batch mean and the *biased*
@@ -57,7 +119,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     (the mean and the unbiased variance); the running statistics are then
     blended from those, the variance scaled by (n - 1) / n. The scratch
     buffers are not in the state dict, whose names are
-    ``nn.BatchNorm2d``'s."""
+    ``nn.BatchNorm2d``'s.
+
+    Under a process group of more than one rank, a training call takes the
+    statistics over the global batch (``_GlobalBatchNorm``) and the running
+    statistics move by them, with the global ``n``; eval mode and a world
+    of 1 take the path above."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -69,11 +136,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        m = self.momentum
+        world = get_world_size()
+        if world > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, world,
+                                                  get_rank())
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+            return y
         # momentum 1: the scratch buffers become this batch's statistics
         y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight, self.bias,
                          True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
-        m = self.momentum
         with torch.no_grad():
             self.running_mean.mul_(1.0 - m).add_(self._batch_mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(self._batch_var, alpha=m * (n - 1) / n)

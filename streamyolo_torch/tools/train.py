@@ -2,7 +2,7 @@
 """Training CLI of the port, the counterpart of ``tools/train.py``.
 
     python -m streamyolo_torch.tools.train -f cfgs/l_s50_onex_dfp_tal_filp.py \\
-        -b 8 --fp16 [--device cpu] [-c weights.pth | --resume] [opts: key value ...]
+        -b 8 --fp16 [-d N] [--device cpu] [-c weights.pth | --resume] [opts: key value ...]
 
 ``-f`` / ``-n`` name one of the port's configs (a path into ``cfgs/`` is
 matched by its basename) or a config file of its own; ``opts`` are ``key
@@ -15,9 +15,20 @@ evaluated (sequential-dedup for ONE / TWO configs; ``--no-dedup`` for the
 dual-frame forward) and checkpoints are written under ``output_dir``. Runs
 on ``cuda`` unless ``--device cpu``.
 
-Not ported yet, and refused: several machines (``--num_machines`` > 1,
-``--dist-url``), the wandb logger, ``--cache``, and the mosaic branch
-(configs with ``no_aug_epochs < max_epoch``).
+Data parallel, as the JAX package trains over every local chip: ``-d N``
+starts N local worker processes (``spawn``), one per card, by default one
+per visible card; ``--num_machines M --machine_rank m --dist-url
+tcp://host:port`` spans M hosts, rank ``m * N + local rank`` of ``M * N``,
+over ``--dist-backend`` (``nccl``; ``gloo`` also on the CPU, where ``-d``
+counts CPU workers). ``-b`` stays the global batch; each rank loads ``-b /
+world`` and the step computes what one process computes on the whole batch
+(``parallel/``). A world of 1 trains in this process with no group; with
+``-d 1`` and several machines this process is the rank. A rank that fails
+makes the others fail (the spawned workers are terminated; a collective
+with a dead peer raises), and a group that does not form raises.
+
+Not ported yet, and refused: the wandb logger, ``--cache``, and the mosaic
+branch (configs with ``no_aug_epochs < max_epoch``).
 """
 
 from __future__ import annotations
@@ -26,8 +37,6 @@ import argparse
 import random
 import warnings
 from typing import Callable, Optional, Sequence
-
-DIST_MESSAGE = "multi-machine training is not ported yet (ROADMAP queue A item 14)"
 
 
 def make_parser():
@@ -46,11 +55,16 @@ def make_parser():
                         help="cache resized images in RAM (not ported yet)")
     parser.add_argument("-o", "--occupy", dest="occupy", default=False, action="store_true",
                         help="accepted for compatibility; changes nothing")
+    parser.add_argument("-d", "--devices", default=None, type=int,
+                        help="local worker processes, one per card (default: every "
+                             "visible card; 1 on the CPU or a named card)")
     parser.add_argument("--dist-backend", default="nccl", type=str,
-                        help="accepted for compatibility; one process trains on one card")
-    parser.add_argument("--num_machines", default=1, type=int, help=DIST_MESSAGE)
-    parser.add_argument("--machine_rank", default=0, type=int, help=DIST_MESSAGE)
-    parser.add_argument("--dist-url", default=None, type=str, help=DIST_MESSAGE)
+                        help="process group backend: nccl, or gloo (also on the CPU)")
+    parser.add_argument("--num_machines", default=1, type=int, help="number of hosts")
+    parser.add_argument("--machine_rank", default=0, type=int, help="this host's rank")
+    parser.add_argument("--dist-url", default=None, type=str,
+                        help="the group's rendezvous, tcp://host:port (a free local port "
+                             "by default on one host)")
     parser.add_argument("-l", "--logger", type=str, default="tensorboard",
                         help="logger backend: tensorboard (wandb is not ported yet)")
     parser.add_argument("--seed", default=None, type=int)
@@ -67,13 +81,58 @@ def make_parser():
 
 def main(argv: Optional[Sequence[str]] = None,
          load_frame: Optional[Callable[[dict], "object"]] = None):
-    """Train as the command line says; returns the ``Trainer``.
-    ``load_frame`` (image dict -> BGR uint8 frame) supplies the pixels of
-    both splits instead of reading them from ``data_dir``."""
-    args = make_parser().parse_args(argv)
-    if args.num_machines > 1 or args.dist_url:
-        raise NotImplementedError(DIST_MESSAGE)
+    """Train as the command line says; returns the ``Trainer`` of this
+    process (``None`` when it spawned the ``-d`` workers). ``load_frame``
+    (image dict -> BGR uint8 frame) supplies the pixels of both splits
+    instead of reading them from ``data_dir``; the spawned workers get it
+    pickled, so it must be picklable (a module-level class or function)."""
+    import torch
 
+    from streamyolo_torch.parallel import free_local_port
+    from streamyolo_torch.utils.device import resolve_device
+
+    args = make_parser().parse_args(argv)
+    if args.devices is None:  # every visible card, unless one is named
+        dev = resolve_device(args.device)
+        args.devices = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
+    world = args.num_machines * args.devices
+    if args.devices < 1 or not 0 <= args.machine_rank < args.num_machines:
+        raise ValueError(f"bad topology: -d {args.devices}, --num_machines "
+                         f"{args.num_machines}, --machine_rank {args.machine_rank}")
+    if args.batch_size % world:
+        raise ValueError(f"the batch {args.batch_size} does not split over {world} ranks")
+    if world == 1:
+        return _train(args, load_frame)
+    if args.dist_url is None:
+        if args.num_machines > 1:
+            raise ValueError("--num_machines > 1 needs --dist-url tcp://host:port")
+        args.dist_url = f"tcp://127.0.0.1:{free_local_port()}"
+    if args.devices == 1:
+        return _worker(0, args, load_frame)
+    torch.multiprocessing.start_processes(_worker, args=(args, load_frame),
+                                          nprocs=args.devices, start_method="spawn")
+    return None
+
+
+def _worker(local_rank: int, args, load_frame):
+    """One rank: join the group on card ``local_rank`` (or the CPU), train,
+    wait for the others, leave the group."""
+    from streamyolo_torch.parallel import destroy, init_distributed, synchronize
+
+    world = args.num_machines * args.devices
+    rank = args.machine_rank * args.devices + local_rank
+    device = init_distributed(args.dist_backend, args.dist_url, world, rank,
+                              device=args.device, local_rank=local_rank)
+    args.device = str(device)
+    try:
+        trainer = _train(args, load_frame)
+        synchronize()
+        return trainer
+    finally:
+        destroy()
+
+
+def _train(args, load_frame):
     from streamyolo_torch.exp import get_exp
 
     exp = get_exp(args.exp_file, args.name)

@@ -15,6 +15,17 @@ EMA.
     BatchNorm running statistics alike, with
     ``d = 0.9998 * (1 - exp(-updates / 2000))`` and ``updates = step + 1``.
 
+Data parallel (``parallel/``): under a process group of more than one
+rank each rank steps on its slice of the global batch. BatchNorm and the
+loss normalizers reduce over the global batch, each rank's loss is its
+share of the global-batch loss, and the rank gradients are **summed**
+(``all_reduce_grads``, in buckets) before SGD, so the step computes what
+one process computes on the whole batch, as the JAX step does under its
+data mesh, and every rank ends it with the same weights, BatchNorm
+statistics, momentum and EMA. The metrics are the global ones (one
+all-reduce of the packed shares). With no group, or a world of 1, none of
+this runs.
+
 Nothing synchronises with the host: the metrics are 0-d tensors on the
 device (and the float ``lr``). The JAX step's ``remat`` option is left
 out: its trainer never sets it.
@@ -30,6 +41,11 @@ import torch
 from torch import nn
 
 from streamyolo_torch.models.losses import streamyolo_losses
+from streamyolo_torch.parallel.multihost import (
+    all_reduce_grads,
+    all_reduce_sum_,
+    get_world_size,
+)
 from streamyolo_torch.train.optimizer import sgd_optimizer
 
 EMA_DECAY = 0.9998
@@ -121,10 +137,15 @@ def make_train_step(num_classes: int, lr_schedule: Callable[[int], float],
         losses = loss_fn(state.model, batch)
         state.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if get_world_size() > 1:
+            all_reduce_grads(state.model.parameters())
+            shares = [k for k in metrics if k != "num_fg"]  # num_fg is global already
+            summed = all_reduce_sum_(torch.stack([metrics[k] for k in shares]))
+            metrics.update(zip(shares, summed.unbind()))
         state.optimizer.step()
         state.step += 1
         state.ema.update(state.step)
-        metrics = {k: v.detach() for k, v in losses.items()}
         metrics["lr"] = lr
         return metrics
 

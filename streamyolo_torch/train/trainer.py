@@ -23,6 +23,16 @@ each epoch, checkpoints, meters.
     time from CUDA events around the step on a card (read at the print
     interval and at the end of an epoch; None on the CPU), the data wait
     from the host clock around ``prefetcher.next()``.
+  * Data parallel (``parallel/``; ``tools/train.py`` brings the process
+    group up, one rank per card): every rank loads its slice of the global
+    batch and steps (``train/step.py``); the ranks must start from the same
+    state (checked once by a hash); the multiscale size, a function of
+    seed and step, is checked equal on every rank when it is drawn; the
+    per-epoch eval is sharded and gathered, through the dual-frame forward
+    (the dedup forward needs the unsharded traversal); only rank 0 writes
+    the log file, TensorBoard and checkpoints, and decides the best
+    checkpoint from its AP. ``--resume`` reads the checkpoint on every
+    rank.
 """
 
 from __future__ import annotations
@@ -34,6 +44,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from streamyolo_torch.parallel import (
+    check_same_on_ranks,
+    get_rank,
+    get_world_size,
+    is_main_process,
+    tensors_digest,
+)
 from streamyolo_torch.utils.logger import get_logger, setup_logger
 from streamyolo_torch.utils.meters import MeterBuffer, device_mem_usage_mb
 
@@ -57,8 +74,11 @@ class Trainer:
         self.load_frame = getattr(args, "load_frame", None)
         self.meter = MeterBuffer(window_size=exp.print_interval)
         self.file_name = os.path.join(exp.output_dir, args.experiment_name)
-        os.makedirs(self.file_name, exist_ok=True)
-        setup_logger(self.file_name, filename="train_log.txt")
+        self.world = get_world_size()
+        self.is_main = is_main_process()
+        if self.is_main:
+            os.makedirs(self.file_name, exist_ok=True)
+        setup_logger(self.file_name, distributed_rank=get_rank(), filename="train_log.txt")
         self.logger = get_logger()
         self.use_tal = exp.head_name == "tal"
         self.tb_writer = None
@@ -108,13 +128,26 @@ class Trainer:
         self.evaluator = exp.get_evaluator(
             batch_size=getattr(args, "eval_batch_size", args.batch_size),
             load_frame=self.load_frame)
-        try:
-            from torch.utils.tensorboard import SummaryWriter
+        if self.world > 1:
+            check_same_on_ranks(tensors_digest(self._state_tensors()),
+                                "the train state at the start")
+        if self.is_main:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
 
-            self.tb_writer = SummaryWriter(self.file_name)
-        except Exception:  # tensorboard is optional, as in the JAX trainer
-            self.tb_writer = None
+                self.tb_writer = SummaryWriter(self.file_name)
+            except Exception:  # tensorboard is optional, as in the JAX trainer
+                self.tb_writer = None
         self.logger.info("Training starts...")
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The weights and BatchNorm statistics, the EMA, the momentum
+        buffers, in a fixed order."""
+        state = self.state
+        momentum = [state.optimizer.state[p].get("momentum_buffer")
+                    for p in self.model.parameters()]
+        return (list(self.model.state_dict().values()) + list(state.ema.state.values())
+                + [m for m in momentum if m is not None])
 
     def resume_train(self) -> Dict[str, torch.Tensor]:
         """The float32 state dict to train from: the config's seeded init,
@@ -231,6 +264,8 @@ class Trainer:
 
         step_idx = self.epoch * self.iters_per_epoch + self.iter
         tsize = tuple(self._current_size(step_idx))
+        if self.world > 1 and step_idx % 10 == 0 and self.exp.random_size is not None:
+            check_same_on_ranks(tsize, f"the multiscale size of step {step_idx}")
         if tsize != self.input_size:
             batch = self._resize_batch(batch, tsize)
 
@@ -315,14 +350,17 @@ class Trainer:
     def evaluate_and_save_model(self):
         exp = self.exp
         self.eval_model.load_state_dict(self.eval_weights())
-        if not getattr(self.args, "no_dedup", False) and exp.evaluator_name in ("onex", "twox"):
+        if (not getattr(self.args, "no_dedup", False) and self.world == 1
+                and exp.evaluator_name in ("onex", "twox")):
             forward_fn = exp.get_dedup_forward_fn(self.eval_model, self.evaluator.dataset)
         else:
             forward_fn = exp.get_forward_fn(self.eval_model)
+        # off rank 0 the gathered eval returns (0.0, 0.0, None)
         ap, ap50, summary = exp.eval(forward_fn, self.evaluator)
         self.eval_history.append({"epoch": self.epoch + 1, "ap": ap, "ap50": ap50,
                                   "ms_per_image": dict(self.evaluator.last_times_ms)})
-        self.logger.info(f"\n{summary}")
+        if summary is not None:
+            self.logger.info(f"\n{summary}")
         if self.tb_writer is not None:
             self.tb_writer.add_scalar("val/COCOAP50", ap50, self.epoch + 1)
             self.tb_writer.add_scalar("val/COCOAP50_95", ap, self.epoch + 1)
@@ -333,8 +371,11 @@ class Trainer:
             self.save_ckpt(f"epoch_{self.epoch + 1}")
 
     def save_ckpt(self, ckpt_name: str, update_best_ckpt: bool = False):
+        """Rank 0 writes; the state is the same on every rank."""
         from streamyolo_torch.utils.checkpoint import save_checkpoint
 
+        if not self.is_main:
+            return
         state = {
             "start_epoch": self.epoch + 1,
             "model": self.eval_weights(),

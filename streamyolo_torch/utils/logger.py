@@ -23,9 +23,13 @@ def get_logger(name: Optional[str] = None) -> logging.Logger:
     return logger
 
 
-def setup_logger(save_dir: str, filename: str = "log.txt", mode: str = "a") -> logging.Logger:
-    """``get_logger()`` that also appends to ``save_dir/filename``."""
+def setup_logger(save_dir: str, distributed_rank: int = 0, filename: str = "log.txt",
+                 mode: str = "a") -> logging.Logger:
+    """``get_logger()`` that also appends to ``save_dir/filename`` on rank 0
+    (``distributed_rank``); every rank logs to stderr."""
     logger = get_logger()
+    if distributed_rank != 0:
+        return logger
     path = os.path.abspath(os.path.join(save_dir, filename))
     root = logging.getLogger(_LOGGER_NAME)
     if not any(getattr(h, "baseFilename", None) == path for h in root.handlers):

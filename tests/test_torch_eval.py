@@ -266,11 +266,17 @@ def test_evaluate_matches_jax(root, models, evaluator):
 
 
 def test_evaluate_refuses_multi_process(root, models):
+    """The multi-process eval is ported (tests/test_torch_distributed.py
+    runs it over two ranks); with no process group ``distributed=True``
+    gathers one rank's rows, and scores as one process does."""
     _, tds = dataset_pair(root, "ONE")
     ev = tevaluators.ONEX_COCOEvaluator(DataLoader(tds, batch_size=3), FAKE_IMG_SIZE, CONF, NMS,
                                         NCLS)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        ev.evaluate(off_pipe_forward(models[2]), distributed=True)
+    fwd = off_pipe_forward(models[2])
+    (ap, ap50, info), rows = ev.evaluate(fwd, distributed=True, return_outputs=True)
+    (ap1, ap50_1, _), rows1 = ev.evaluate(fwd, distributed=False, return_outputs=True)
+    assert info is not None and len(rows) > 0
+    assert rows == rows1 and (ap, ap50) == (ap1, ap50_1)
 
 
 def test_exp_configs_match_jax():

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter in
 which ``import jax``, ``import flax`` and ``import streamyolo_tpu`` fail
-imports every module of ``streamyolo_torch`` and ``chip_smoke.py``."""
+imports every module of ``streamyolo_torch`` (``parallel`` among them) and
+``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -14,6 +15,7 @@ for name in ("jax", "flax", "streamyolo_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 import streamyolo_torch
 names = sorted(m.name for m in pkgutil.walk_packages(streamyolo_torch.__path__, "streamyolo_torch."))
+assert {"streamyolo_torch.parallel", "streamyolo_torch.parallel.multihost"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

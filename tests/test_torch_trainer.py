@@ -292,8 +292,6 @@ def test_cli_trains_and_eval_reads_its_checkpoint(root, jax_init, tmp_path):
 
 
 def test_cli_refusals(root, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_tool.main(["-f", CFG, "--num_machines", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 15"):
         run_cli(root, tmp_path, "-l", "wandb")
     with pytest.raises(NotImplementedError, match="--cache"):
