@@ -33,7 +33,11 @@ stream_det.py`` under the wall clock, with ``--sim-zoo`` and with
 ``--infinite``, then ``offline_det``, ``streaming_eval``, ``forecast_kf`` and
 ``collect_summary``) at full width on the rehearsal's frames, serves the
 same frames through a ``Streamer`` whose detector lives in a spawned child
-on the card, quantizes StreamYOLO-l to int8 (``streamyolo_torch/quant``:
+on the card, serves from captured CUDA graphs (phase ``aot_serve``:
+``tools/precompile.py --serve`` in a child, a second child that cannot run
+``nvcc`` serving from its directory bit for bit against eager detectors,
+host path, ``device_preproc``, int8 and 8 streams, then ``stream_det
+--aot-dir``), quantizes StreamYOLO-l to int8 (``streamyolo_torch/quant``:
 calibration, BN fold, the int8 conv kernel ``csrc/int8_conv.cu`` held bit
 for bit against its plain version at every conv shape of the step) and
 serves it, trains a tiny StreamYOLO with the port on the synthetic video and
@@ -47,7 +51,8 @@ of two machines (one epoch, the sharded eval with B1 in each rank, rank 0's
 gathered rows against a one-process eval of its checkpoint); the ranks run
 as ``chip_smoke.py --dp-rank ...``. Each phase prints
 one JSON line; the line before the last lists the kernels, with their
-launches on every path, and the last line is ``{"ok": true, "device":
+launches on every path (from graphs: launches captured per graph x
+replays), and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
 no result. Imports nothing of JAX.
 """
@@ -60,6 +65,7 @@ import itertools
 import json
 import pickle
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -458,6 +464,14 @@ def phase_multi_stream_times(model, pool, kw) -> None:
          stem_map_gb_n56=56 * 64 * (INPUT[0] // 2) * (INPUT[1] // 2) * 2 / 1e9, **out)
 
 
+def rehearsal_fixture():
+    """The rehearsal's in-memory synthetic fixture at Argoverse-HD's raw size."""
+    from streamyolo_torch.data import SyntheticArgoverse
+
+    return SyntheticArgoverse(seq_lens=(REHEARSAL_FRAMES,) * REHEARSAL_SEQS,
+                              size=(2 * INPUT[0], 2 * INPUT[1]), seed=SEED)
+
+
 def phase_sap_rehearsal(out_dir, device="cuda"):
     """The simulated-clock sAP rehearsal through the tool's functions: an
     in-memory synthetic fixture at Argoverse-HD's raw size, a
@@ -465,15 +479,14 @@ def phase_sap_rehearsal(out_dir, device="cuda"):
     B1), measured per-call walls replayed by ``SimClock``, pseudo ground
     truth from the detector's every-frame run, pairing and native COCOeval.
     Returns the detector, the fixture and the path's kernel launches."""
-    from streamyolo_torch.data import COCO, SyntheticArgoverse
+    from streamyolo_torch.data import COCO
     from streamyolo_torch.ops.nms_cuda import nms_keep
     from streamyolo_torch.ops.preproc import downsample2x
     from streamyolo_torch.stream import Empirical, SimClock, run_streaming_detection, streaming_eval
     from streamyolo_torch.tools import sap_rehearsal as reh
 
     raw_size = (2 * INPUT[0], 2 * INPUT[1])
-    synth = SyntheticArgoverse(seq_lens=(REHEARSAL_FRAMES,) * REHEARSAL_SEQS,
-                               size=raw_size, seed=SEED)
+    synth = rehearsal_fixture()
     db = COCO(synth.data)
     det = reh.build_detector(MODEL_SIZE, input_size=INPUT, seed=SEED, in_scale=0.5,
                              conf_thre=CONF, nms_thre=NMS, pre_nms_topk=TOPK,
@@ -1789,6 +1802,277 @@ def phase_streamer(synth) -> dict:
     return child_launches
 
 
+AOT_FRAMES, AOT_RESET_AT = 50, 25  # aot_serve: chained frames, reset() before this one
+AOT_MULTI_STEPS = 20  # aot_serve: N = MULTI_N steps, reset(MULTI_RESET_ROW) half-way
+AOT_PROFILE_FRAMES = 10  # aot_serve: frames traced for the host's CUDA runtime calls
+
+
+def aot_models():
+    """The serving models of phase ``aot_serve``: StreamYOLO-l of
+    ``EVAL_CONFIG`` with ``lifted_state``, bf16 modules on the card, and its
+    int8 quantization (``int8_state`` on the main path's seeded frames)."""
+    from streamyolo_torch.exp import get_exp
+
+    exp = get_exp(exp_name=EVAL_CONFIG)
+    rng = np.random.RandomState(SEED)
+    frames = [rng.randint(0, 256, (*INPUT, 3), np.uint8) for _ in range(INT8_CALIB_FRAMES)]
+    q, m32, _ = int8_state(exp, frames)
+    del m32
+    exp.compute_dtype = "bfloat16"
+    model, int8_model = exp.get_model("cuda"), exp.get_model("cuda")
+    model.load_state_dict(lifted_state(exp), strict=True)
+    int8_model.load_state_dict(q, strict=True)
+    return model, int8_model
+
+
+def aot_export_main(aot_dir: str) -> int:
+    """Phase ``aot_serve``'s exporting process: ``precompile --serve DIR
+    --streams MULTI_N`` of ``EVAL_CONFIG`` (host path, ``device_preproc``,
+    N streams), then the int8 model's host-path graphs. Prints one JSON
+    line."""
+    from streamyolo_torch.stream import export_stream_executables
+    from streamyolo_torch.tools import precompile
+
+    t0 = time.perf_counter()
+    out = precompile.main(["-f", f"cfgs/{EVAL_CONFIG}.py", "--serve", aot_dir, "--streams",
+                           str(MULTI_N), "-b", "1", "--conf", str(CONF), "--nms", str(NMS),
+                           "--topk", str(TOPK)])
+    out["seconds"]["precompile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, int8_model = aot_models()
+    out["serve"] += export_stream_executables(
+        int8_model, aot_dir, input_size=INPUT, conf_thre=CONF, nms_thre=NMS, num_classes=NCLS,
+        pre_nms_topk=TOPK, use_bf16=True)
+    out["seconds"]["int8_export"] = time.perf_counter() - t0
+    print("AOT_EXPORT " + json.dumps(out), flush=True)
+    return 0
+
+
+def host_calls(det, pool) -> dict:
+    """``AOT_PROFILE_FRAMES`` frames of ``det`` under ``torch.profiler``: per
+    frame, the host's CUDA runtime launch calls (kernel and graph launches)
+    and each runtime call, the device kernels and their busy ms, over the
+    traced wall."""
+    import torch
+
+    from streamyolo_torch.tools.profile_step import _kernel_stats
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(AOT_PROFILE_FRAMES):
+            det(pool[i % len(pool)], preprocessed=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / AOT_PROFILE_FRAMES
+    runtime = {e.key: e.count / AOT_PROFILE_FRAMES for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and re.match(r"cu(da)?[A-Z]", e.key)}
+    busy_us, n_kernels, _ = _kernel_stats(prof)
+    busy_ms = busy_us / 1e3 / AOT_PROFILE_FRAMES
+    return {"launch_calls_per_frame": sum(n for k, n in runtime.items() if "Launch" in k),
+            "runtime_calls_per_frame": runtime,
+            "device_kernels_per_frame": n_kernels / AOT_PROFILE_FRAMES,
+            "device_busy_ms_per_frame": busy_ms, "traced_wall_ms_per_frame": wall_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def aot_pair(name, graph, eager, pool, device_image) -> dict:
+    """One detector served from graphs against its eager twin: the first
+    served frame, ``AOT_FRAMES`` chained frames (``reset()`` before
+    ``AOT_RESET_AT``) bit for bit with the graph path's kernel launches
+    (captured per graph x replays), the median wall (host clock around
+    ``__call__``, ending in the D2H) and device ms (CUDA events around
+    ``.step`` on a frame already on the card) of ``STEADY_STEPS`` steady
+    frames, and the host's runtime calls per frame."""
+    check(graph.aot_loaded, f"aot_serve {name}: the detector did not serve from graphs")
+    t0 = time.perf_counter()
+    graph(pool[0], preprocessed=True)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    graph.graphs.replays = [0, 0]
+    graph.reset()
+    eager.reset()
+    for i in range(AOT_FRAMES):
+        if i == AOT_RESET_AT:
+            graph.reset()
+            eager.reset()
+        graph(pool[i % len(pool)], preprocessed=True)
+        eager(pool[i % len(pool)], preprocessed=True)
+        check(graph.last_rows.shape == (TOPK, 8) and np.isfinite(graph.last_rows).all(),
+              f"aot_serve {name}: rows not a finite [{TOPK}, 8] block")
+        check(np.array_equal(graph.last_rows.view(np.int32), eager.last_rows.view(np.int32)),
+              f"aot_serve {name}: graph rows differ from eager rows at frame {i}")
+    launches = graph.graphs.launches()
+    star, steady = graph.graphs.captured
+    check(graph.graphs.replays == [2, AOT_FRAMES - 2] and launches["nms"] == AOT_FRAMES,
+          f"aot_serve {name}: {graph.graphs.replays} replays, {launches} launches")
+    times = {}
+    for side, det in (("graph", graph), ("eager", eager)):
+        det.reset()
+        det.step(device_image)  # star
+        times[f"{side}_device_ms"] = time_cuda(lambda: det.step(device_image), STEADY_STEPS)
+        walls = []
+        for i in range(STEADY_STEPS):
+            t0 = time.perf_counter()
+            det(pool[i % len(pool)], preprocessed=True)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        times[f"{side}_wall_ms"] = statistics.median(walls)
+        times[f"{side}_host"] = host_calls(det, pool)
+    return {"first_frame_ms": first_ms, "capture_s": graph.graphs.capture_seconds,
+            "captured_launches": {"star": star, "steady": steady}, "frames": AOT_FRAMES,
+            "frames_bit_equal": AOT_FRAMES, "launches": launches, **times}
+
+
+def aot_serve_main(aot_dir: str) -> int:
+    """Phase ``aot_serve``'s serving process. Its ``ops/_build.py`` has no
+    build directory and no ``nvcc``, so every kernel comes from ``aot_dir``.
+    Serves StreamYOLO-l from graphs (host path, ``device_preproc``, int8,
+    ``MULTI_N`` streams) against eager detectors of the same models, bit for
+    bit, times both, and checks that another conf misses. Prints one JSON
+    line."""
+    import tempfile
+
+    import torch
+
+    from streamyolo_torch.ops import _build
+    from streamyolo_torch.stream import CUDAStreamDetector, MultiStreamDetector
+
+    _build.BUILD_DIR = Path(tempfile.mkdtemp()) / "no_builds"
+
+    def no_nvcc():
+        raise RuntimeError("the serving process must not run nvcc")
+
+    _build.nvcc_path = no_nvcc
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model, int8_model = aot_models()
+    models_s = time.perf_counter() - t0
+    kw = dict(input_size=INPUT, in_scale=0.5, conf_thre=CONF, nms_thre=NMS, num_classes=NCLS,
+              pre_nms_topk=TOPK, use_bf16=True)
+    rng = np.random.RandomState(SEED + 7)
+    frames = [rng.randint(0, 256, (*INPUT, 3), np.uint8) for _ in range(4)]
+    raws = [rng.randint(0, 256, (2 * INPUT[0], 2 * INPUT[1], 3), np.uint8) for _ in range(4)]
+    out = {"models_s": models_s}
+    for name, mdl, pool, extra in (("host", model, frames, {}),
+                                   ("device_preproc", model, raws, {"device_preproc": True}),
+                                   ("int8", int8_model, frames, {})):
+        t0 = time.perf_counter()
+        graph = CUDAStreamDetector(mdl, aot_dir=aot_dir, **kw, **extra)
+        construct_s = time.perf_counter() - t0
+        eager = CUDAStreamDetector(mdl, **kw, **extra)
+        image = torch.from_numpy(pool[0]).to(dev)[None]
+        out[name] = {"construct_s": construct_s, **aot_pair(name, graph, eager, pool, image)}
+        del graph, eager
+    check(out["device_preproc"]["launches"]["preproc"] == AOT_FRAMES
+          and out["int8"]["launches"]["int8_conv"] > 0 and out["host"]["launches"]["int8_conv"]
+          == out["host"]["launches"]["preproc"] == 0,
+          "aot_serve: graph launches "
+          f"{[out[k]['launches'] for k in ('host', 'device_preproc', 'int8')]}")
+
+    t0 = time.perf_counter()
+    graph = MultiStreamDetector(model, MULTI_N, aot_dir=aot_dir, **kw)
+    construct_s = time.perf_counter() - t0
+    eager = MultiStreamDetector(model, MULTI_N, **kw)
+    check(graph.aot_loaded, "aot_serve multi-stream: the detector did not serve from graphs")
+    graph.graphs.replays = [0, 0]
+    pool = [np.random.RandomState(SEED + 1 + i).randint(0, 256, (MULTI_N, *INPUT, 3), np.uint8)
+            for i in range(4)]
+    for t in range(AOT_MULTI_STEPS):
+        if t == AOT_MULTI_STEPS // 2:
+            graph.reset(MULTI_RESET_ROW)
+            eager.reset(MULTI_RESET_ROW)
+        graph(pool[t % len(pool)], preprocessed=True)
+        eager(pool[t % len(pool)], preprocessed=True)
+        check(np.array_equal(graph.last_rows.view(np.int32), eager.last_rows.view(np.int32)),
+              f"aot_serve multi-stream: graph rows differ from eager rows at step {t}")
+    out["multi_stream"] = {"n_streams": MULTI_N, "steps": AOT_MULTI_STEPS,
+                           "reset_row": MULTI_RESET_ROW, "construct_s": construct_s,
+                           "capture_s": graph.graphs.capture_seconds,
+                           "launches": graph.graphs.launches()}
+    check(out["multi_stream"]["launches"]["nms"] == AOT_MULTI_STEPS,
+          f"aot_serve multi-stream: {out['multi_stream']['launches']} graph launches")
+    del graph, eager
+    miss = CUDAStreamDetector(model, aot_dir=aot_dir, **{**kw, "conf_thre": 2 * CONF})
+    check(not miss.aot_loaded, "aot_serve: a detector with another conf did not miss")
+    out["miss_with_other_conf"] = True
+    print("AOT_SERVE " + json.dumps(out), flush=True)
+    return 0
+
+
+def aot_child(flag: str, aot_dir: Path) -> dict:
+    """Run ``chip_smoke.py <flag> aot_dir`` in a fresh process; its JSON line."""
+    tag = {"--aot-export": "AOT_EXPORT ", "--aot-serve": "AOT_SERVE "}[flag]
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag, str(aot_dir)],
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"aot_serve {flag} child: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-4000:]}")
+    return json.loads(lines[0][len(tag):])
+
+
+def phase_aot_serve(out_dir: Path, synth, smi: str) -> dict:
+    """Serving from captured CUDA graphs (``aot_dir``) at StreamYOLO-l,
+    600x960, bf16, seeded weights, conf 0.01 / NMS 0.65 / top-k 200: a
+    fresh process runs ``precompile --serve DIR --streams MULTI_N`` and
+    exports the int8 model's graphs; a second fresh process, which cannot
+    run ``nvcc``, serves from DIR (``aot_serve_main``); then ``stream_det
+    --aot-dir DIR --device-preproc`` runs under the wall clock on the
+    rehearsal's frames in this process and must serve from the graphs.
+    Returns the graph path's kernel launches by path (launches captured per
+    graph x replays; a replay moves no wrapper counter)."""
+    import shutil
+
+    import torch
+
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.tools import stream_det
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    aot_dir = out_dir / "aot"
+    exported = aot_child("--aot-export", aot_dir)
+    check(len(exported["serve"]) == 8 and all(Path(p).is_file() for p in exported["serve"]),
+          f"aot_serve: precompile wrote {exported['serve']}")
+    libs = sorted(p.name.split("-")[0] for p in aot_dir.glob("*.so"))
+    check(libs == ["int8_conv", "nms", "preproc"], f"aot_serve: libraries {libs} in {aot_dir}")
+    served = aot_child("--aot-serve", aot_dir)
+
+    # stream_det --aot-dir on the rehearsal's frames, under the wall clock
+    n_seqs = len(synth.data["sequences"])
+    annot = out_dir / "val.json"
+    annot.write_text(json.dumps(synth.data))
+    weights = out_dir / "l_seed0.pth"
+    torch.save(lifted_state(get_exp(exp_name=EVAL_CONFIG)), weights)
+    made = []
+    build = stream_det.build_detector
+    stream_det.build_detector = lambda *a, **k: made.append(build(*a, **k)) or made[-1]
+    try:
+        stream_det.main(["--data-root", str(out_dir), "--annot-path", str(annot), "-f",
+                         f"cfgs/{EVAL_CONFIG}.py", "-c", str(weights), "--device-preproc",
+                         "--aot-dir", str(aot_dir), "--out-dir", str(out_dir / "wall")],
+                        load_frame=synth.frame)
+    finally:
+        stream_det.build_detector = build
+    det = made[-1]
+    check(det.aot_loaded, "aot_serve: stream_det --aot-dir did not serve from graphs")
+    run = run_summary(out_dir / "wall", n_seqs)
+    star, steady = det.graphs.captured
+    calls = sum(det.graphs.replays) - 2 - stream_det.WARMUP_FRAMES  # the probe, the warm-up
+    check(run["processed"] <= calls <= run["processed"] + n_seqs,
+          f"stream_det --aot-dir: {det.graphs.replays} replays for {run['processed']} results")
+    cli = {"run": run, "replays": det.graphs.replays, "calls_after_warmup": calls,
+           "launches": {k: det.graphs.launches()[k] - star[k] - steady[k] for k in star}}
+    del det, made
+    torch.cuda.empty_cache()
+    emit("aot_serve", nvidia_smi=smi, model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT),
+         dtype="bfloat16", conf=CONF, nms=NMS, topk=TOPK, export=exported, serve=served,
+         stream_det=cli, phase_s=time.perf_counter() - t_phase)
+    by_path = {f"aot_serve_{k}": served[k]["launches"]
+               for k in ("host", "device_preproc", "int8", "multi_stream")}
+    by_path["aot_stream_det"] = cli["launches"]
+    return by_path
+
 def _iou_xywh(a, b) -> float:
     ax2, ay2, bx2, by2 = a[0] + a[2], a[1] + a[3], b[0] + b[2], b[1] + b[3]
     iw = max(0.0, min(ax2, bx2) - max(a[0], b[0]))
@@ -1916,6 +2200,23 @@ def int8_exact(x, kq, ws, act, stride: int, groups: int, label: str) -> int:
     return got.numel()
 
 
+def int8_state(exp, frames):
+    """(the int8 serving state dict, the float32 model on the card it was
+    calibrated with, the seconds of calibration and quantization):
+    ``lifted_state(exp)`` calibrated off_pipe on ``INT8_CALIB_FRAMES`` pairs
+    of ``frames`` and quantized."""
+    from streamyolo_torch.quant import calibrate_activations, quantize_state_dict
+
+    state = lifted_state(exp)
+    m32 = exp.get_model("cuda")
+    m32.load_state_dict(state, strict=True)
+    x6 = np.stack([np.concatenate([frames[i], frames[(i + 1) % len(frames)]], -1)
+                   for i in range(INT8_CALIB_FRAMES)])
+    t0 = time.perf_counter()
+    q = quantize_state_dict(state, calibrate_activations(m32, [x6]))
+    return q, m32, time.perf_counter() - t0
+
+
 def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
     """StreamYOLO-l at 600x960 through the int8 PTQ serving path. The
     seeded weights of ``EVAL_CONFIG`` with the prediction biases lifted
@@ -1944,20 +2245,12 @@ def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
     from streamyolo_torch.nn.blocks import BaseConv
     from streamyolo_torch.ops.int8_conv import int8_conv, int8_conv_plain, plan_int8_conv
     from streamyolo_torch.ops.nms_cuda import nms_keep
-    from streamyolo_torch.quant import calibrate_activations, quantize_state_dict
     from streamyolo_torch.stream import CUDAStreamDetector
     from streamyolo_torch.tools.int8_conv_times import STEP_SHAPES, layer_times
 
     dev = torch.device("cuda")
     exp = get_exp(exp_name=EVAL_CONFIG)
-    state = lifted_state(exp)
-    m32 = exp.get_model("cuda")
-    m32.load_state_dict(state, strict=True)
-    x6 = np.stack([np.concatenate([frames[i], frames[(i + 1) % len(frames)]], -1)
-                   for i in range(INT8_CALIB_FRAMES)])
-    t0 = time.perf_counter()
-    q = quantize_state_dict(state, calibrate_activations(m32, [x6]))
-    quantize_s = time.perf_counter() - t0
+    q, m32, quantize_s = int8_state(exp, frames)
     n_quantized = sum(k.endswith(".kernel_q") for k in q)
 
     exp.compute_dtype = "bfloat16"
@@ -2318,8 +2611,9 @@ def new_path_launches(kernel: str, cli: dict, streamer: dict, trained: dict) -> 
 
 
 def main(only: str = None) -> int:
-    """The whole script; ``only="data_parallel"`` runs the device line, the
-    build and that phase alone (for work on it), and prints no result."""
+    """The whole script; ``only="data_parallel"`` or ``"aot_serve"`` runs the
+    device line, the build and that phase alone (for work on it), and prints
+    no result."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2353,6 +2647,10 @@ def main(only: str = None) -> int:
          ptxas=ptxas)
     if only == "data_parallel":
         phase_data_parallel(Path(__file__).resolve().parent / "build" / "chip_smoke_dp", smi)
+        return 0
+    if only == "aot_serve":
+        phase_aot_serve(Path(__file__).resolve().parent / "build" / "chip_smoke_aot",
+                        rehearsal_fixture(), smi)
         return 0
 
     # 3. B1 against its plain versions (fixed point on the card, sweep on the CPU)
@@ -2549,6 +2847,10 @@ def main(only: str = None) -> int:
     # 7b. the real-time CLI and the Streamer on the same frames
     cli = phase_stream_cli(root / "chip_smoke_stream_cli", synth)
     streamer = phase_streamer(synth)
+
+    # 7c. serving from captured CUDA graphs: precompile --serve, a fresh
+    # serving process without nvcc, stream_det --aot-dir
+    aot = phase_aot_serve(root / "chip_smoke_aot", synth, smi)
     del synth
 
     # Kernel times two ways: one call between two events after a sleep
@@ -2559,7 +2861,7 @@ def main(only: str = None) -> int:
     floor = {"single": time_cuda(lambda: one.add_(1), iters=200, device_only=True),
              "back_to_back": time_back_to_back(lambda: one.add_(1))}
 
-    # 7c. the int8 PTQ serving path: calibrate, quantize, serve, the kernel
+    # 7d. the int8 PTQ serving path: calibrate, quantize, serve, the kernel
     # against its plain version at every conv shape of the step, times
     int8 = phase_int8(frames, steps, floor)
 
@@ -2621,10 +2923,17 @@ def main(only: str = None) -> int:
     n_out = (h // 2) * (w // 2) * 3
     b2_bound, b2_by = bound_ms(h * w * 3 + n_out * 2, n_out * PREPROC_OPS_PER_VALUE)
 
+    def graph_launches(kernel: str) -> dict:
+        """Phase ``aot_serve``'s launches of ``kernel`` by path: launches
+        captured per graph x its replays (a replay moves no wrapper counter)."""
+        return {path: counts[kernel] for path, counts in aot.items() if counts.get(kernel)}
+
+    graph_note = "aot_* entries: launches captured per graph x replays, added to launches"
     kernels = [
         {"name": "nms_keep (B1)", "route": "cuda", "source": "streamyolo_torch/csrc/nms.cu",
          "replaces": "streamyolo_tpu/ops/nms_pallas.py:26",
-         "launches": launches["nms"], "max_abs_err": nms_err, "ms": b1_ms,
+         "launches": launches["nms"] + sum(graph_launches("nms").values()),
+         "max_abs_err": nms_err, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
          "ms_back_to_back": b1_b2b_ms, "ms_batch56": b1_b56_ms, "floor_ms": floor,
@@ -2638,7 +2947,9 @@ def main(only: str = None) -> int:
                               "train": train["launches"]["nms"],
                               **new_path_launches("nms", cli, streamer, trained),
                               "data_parallel_eval": dp["launches"],
-                              "data_parallel_eval_by_rank": dp["launches_by_rank"]},
+                              "data_parallel_eval_by_rank": dp["launches_by_rank"],
+                              **graph_launches("nms")},
+         "graph_launches": graph_note,
          "eval_k1000": offline["times"],
          "batch8": {"shape": f"B=8 K={b8_boxes.shape[1]} valid={int(b8_valid.sum())}, "
                              "candidates of a real multi-stream step",
@@ -2648,7 +2959,8 @@ def main(only: str = None) -> int:
         {"name": "downsample2x (B2)", "route": "cuda",
          "source": "streamyolo_torch/csrc/preproc.cu",
          "replaces": "streamyolo_tpu/ops/preproc_pallas.py:33",
-         "launches": launches["preproc"], "max_abs_err": pre_err, "ms": b2_ms,
+         "launches": launches["preproc"] + sum(graph_launches("preproc").values()),
+         "max_abs_err": pre_err, "ms": b2_ms,
          "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": b2_lib_ms, "max_abs_diff_vs_plain": pre_err, "kernel_ms": b2_ms,
          "ms_back_to_back": b2_b2b_ms, "library_ms_back_to_back": b2_lib_b2b_ms,
@@ -2661,10 +2973,13 @@ def main(only: str = None) -> int:
                               "offline_eval_no_dedup":
                                   offline["launches"]["no_dedup"]["preproc"],
                               "train": train["launches"]["preproc"],
-                              **new_path_launches("preproc", cli, streamer, trained)}},
+                              **new_path_launches("preproc", cli, streamer, trained),
+                              **graph_launches("preproc")},
+         "graph_launches": graph_note},
         {"name": "int8_conv", "route": "cuda", "source": "streamyolo_torch/csrc/int8_conv.cu",
          "replaces": "streamyolo_tpu/nn/blocks.py:123",
-         "launches": int8["launches"]["int8_conv"], "max_abs_err": 0.0,
+         "launches": int8["launches"]["int8_conv"] + sum(graph_launches("int8_conv").values()),
+         "max_abs_err": 0.0,
          "ms": int8["whole"]["ms"], "plain_ms": int8["whole"]["plain_ms"],
          "bound_ms": int8["whole"]["bound_ms"], "bound_by": int8["whole"]["bound_by"],
          "library_ms": int8["whole"]["cudnn_bf16_ms"],
@@ -2677,7 +2992,9 @@ def main(only: str = None) -> int:
          "floor_ms": floor, "ptxas": ptxas.get("int8_conv"),
          "launches_by_path": {"int8_serving": int8["launches"]["int8_conv"],
                               "int8_eval": trained["eval_int8"]["int8_conv"],
-                              "int8_eval_no_dedup": trained["eval_int8_no_dedup"]["int8_conv"]}},
+                              "int8_eval_no_dedup": trained["eval_int8_no_dedup"]["int8_conv"],
+                              **graph_launches("int8_conv")},
+         "graph_launches": graph_note},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2689,6 +3006,10 @@ def main(only: str = None) -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # a rank of phase data_parallel
         sys.exit(dp_rank_main(sys.argv[2:]))
-    if sys.argv[1:] == ["--only", "data_parallel"]:
-        sys.exit(main(only="data_parallel"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--aot-export":  # phase aot_serve's children
+        sys.exit(aot_export_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
+        sys.exit(aot_serve_main(sys.argv[2]))
+    if sys.argv[1:] in (["--only", "data_parallel"], ["--only", "aot_serve"]):
+        sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

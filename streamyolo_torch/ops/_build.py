@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_paths: Dict[str, str] = {}  # the file each loaded library came from
 
 
 def nvcc_path() -> str:
@@ -49,10 +50,19 @@ def nvcc_path() -> str:
         "streamyolo_torch cannot be built on this host")
 
 
-def _target(name: str) -> Path:
+def digest(name: str) -> str:
+    """The build's identity: a hash of ``csrc/<name>.cu`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def digests() -> Dict[str, str]:
+    """``digest`` of every source, by name."""
+    return {name: digest(name) for name in SOURCES}
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{digest(name)}.so"
 
 
 def build_all() -> Dict[str, dict]:
@@ -87,6 +97,19 @@ def build_all() -> Dict[str, dict]:
     return report
 
 
+def load_from(name: str, path: str) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu``'s library from ``path`` (a copy that
+    ``stream/online.py``'s export put beside its graphs), so that ``load``
+    returns it and never runs ``nvcc``. A library of ``name`` loaded before
+    stays: the caller has checked that ``path`` holds the same build."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(path))
+            _paths[name] = str(path)
+        return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
@@ -97,4 +120,11 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
+            _paths[name] = str(path)
         return lib
+
+
+def library_path(name: str) -> str:
+    """The file of ``csrc/<name>.cu``'s library, loaded (built) first."""
+    load(name)
+    return _paths[name]

@@ -10,6 +10,8 @@ from streamyolo_torch.stream.online import (
     CUDAStreamDetector,
     MultiStreamDetector,
     SimulatedDetector,
+    export_multi_stream_executables,
+    export_stream_executables,
     print_stats,
     run_streaming_detection,
     stream_sequence,
@@ -38,6 +40,7 @@ from streamyolo_torch.stream.track import (
 
 __all__ = [
     "SimClock", "WallClock", "CUDAStreamDetector", "MultiStreamDetector",
+    "export_stream_executables", "export_multi_stream_executables",
     "SimulatedDetector", "print_stats", "run_streaming_detection",
     "stream_sequence", "stream_sequence_infinite", "detections_for_image",
     "eval_ccf", "ltrb2ltwh", "pair_streaming_results", "streaming_eval",

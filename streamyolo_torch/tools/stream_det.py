@@ -22,9 +22,11 @@ shape-tolerant (missing or mismatched entries keep their init values); a
 JAX ``.pkl`` is refused with a pointer to ``tools/export_safetensors.py``.
 The modules are bf16 unless ``--fp32``. ``--device-preproc`` downsamples
 the raw frame on the card (kernel B2; raw frames must be exactly twice the
-input size) instead of resizing on the host with cv2. Frames are read with
-cv2 from ``--data-root``, or taken from ``main(load_frame=...)``. Runs on
-``cuda`` unless ``--device cpu``.
+input size) instead of resizing on the host with cv2. ``--aot-dir DIR``
+serves from the captured graphs that ``precompile --serve DIR`` wrote for
+this configuration (``stream/online.py``; eager, with a warning, on a key
+miss). Frames are read with cv2 from ``--data-root``, or taken from
+``main(load_frame=...)``. Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -36,8 +38,6 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
-AOT_MESSAGE = ("--aot-dir is not ported: CUDA-graph capture of the serving steps, "
-               "the counterpart of the JAX AOT executables, is ROADMAP queue A item 10")
 WARMUP_FRAMES = 10
 SIM_SEED = 0
 
@@ -64,7 +64,9 @@ def make_parser():
                         help="process EVERY frame (infinite compute); needs --sim-zoo")
     parser.add_argument("--sim-name", type=str, default=None, help="zoo entry name")
     parser.add_argument("--perf-factor", type=float, default=1.0)
-    parser.add_argument("--aot-dir", type=str, default=None, help=AOT_MESSAGE)
+    parser.add_argument("--aot-dir", type=str, default=None,
+                        help="serve from the captured graphs that precompile --serve "
+                             "wrote under this directory (eager on a key miss)")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--device-preproc", action="store_true", default=False,
                         help="0.5x downsample on the card (kernel B2); raw frames "
@@ -103,8 +105,6 @@ def main(argv: Optional[Sequence[str]] = None,
     -> BGR uint8 frame) supplies the pixels instead of reading them from
     ``--data-root``."""
     args = make_parser().parse_args(argv)
-    if args.aot_dir is not None:
-        raise NotImplementedError(AOT_MESSAGE)
     if args.infinite and not args.sim_zoo:
         raise SystemExit("--infinite requires --sim-zoo")
 
@@ -121,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None,
     detector = build_detector(
         args.config, args.weights, input_size, fp32=args.fp32, device=args.device,
         in_scale=args.in_scale, conf_thre=args.conf, nms_thre=args.nms,
-        device_preproc=args.device_preproc)
+        device_preproc=args.device_preproc, aot_dir=args.aot_dir)
     print("loaded checkpoint done.")
     detector.warmup(WARMUP_FRAMES)
 

@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter in
 which ``import jax``, ``import flax`` and ``import streamyolo_tpu`` fail
-imports every module of ``streamyolo_torch`` (``parallel`` among them) and
-``chip_smoke.py``."""
+imports every module of ``streamyolo_torch`` (``parallel``, ``utils/aot.py``,
+``tools/precompile.py`` and ``tools/export_safetensors.py`` among them),
+``chip_smoke.py`` and the tests' fresh-process helper
+``tests/_torch_aot_child.py``."""
 
 import os
 import subprocess
@@ -15,10 +17,14 @@ for name in ("jax", "flax", "streamyolo_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 import streamyolo_torch
 names = sorted(m.name for m in pkgutil.walk_packages(streamyolo_torch.__path__, "streamyolo_torch."))
-assert {"streamyolo_torch.parallel", "streamyolo_torch.parallel.multihost"} <= set(names), names
+assert {"streamyolo_torch.parallel", "streamyolo_torch.parallel.multihost",
+        "streamyolo_torch.utils.aot", "streamyolo_torch.tools.precompile",
+        "streamyolo_torch.tools.export_safetensors"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import _torch_aot_child
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "flax", "streamyolo_tpu")
                 and sys.modules[n] is not None)

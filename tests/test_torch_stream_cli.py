@@ -15,6 +15,7 @@ are deterministic), ``--device cpu`` on the port's side. Tolerances, as
 equal results.
 """
 
+import logging
 import os
 import pickle
 import runpy
@@ -32,6 +33,7 @@ from streamyolo_tpu.exp import get_exp as j_get_exp
 from streamyolo_torch.tools import collect_summary as t_collect
 from streamyolo_torch.tools import forecast_kf as t_forecast_kf
 from streamyolo_torch.tools import offline_det as t_offline_det
+from streamyolo_torch.tools import precompile as t_precompile
 from streamyolo_torch.tools import stream_det as t_stream_det
 from streamyolo_torch.tools import streaming_eval as t_streaming_eval
 from streamyolo_torch.utils.weights import jax_variables_to_state_dict
@@ -219,10 +221,55 @@ def test_port_cli_without_a_card_raises(runs, tool, tmp_path):
         tool.main([*runs["common"], "--out-dir", str(tmp_path)])
 
 
-def test_stream_det_refuses_aot_dir_and_jax_checkpoints(runs, tmp_path):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of small bf16 steps (the suite runs in
+    several worker processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_stream_det_refuses_aot_dir_and_jax_checkpoints(runs, tmp_path, monkeypatch, caplog,
+                                                        one_thread):
+    """``--aot-dir`` (bf16 modules, ``--sim-zoo``): a directory without this
+    configuration's graphs is a logged miss and the run is eager; after
+    ``precompile --serve DIR --streams 2 --device cpu`` the run serves from
+    the exported steps (``aot_loaded``, every call a replay) and writes the
+    eager run's pkls. A JAX ``.pkl`` is refused; ``--infinite`` needs
+    ``--sim-zoo``."""
+    made = []
+    build = t_stream_det.build_detector
+    monkeypatch.setattr(t_stream_det, "build_detector",
+                        lambda *a, **k: made.append(build(*a, **k)) or made[-1])
+    bf16 = [a for a in runs["common"] if a != "--fp32"] + [
+        "--device", "cpu", "--sim-zoo", str(runs["root"] / "zoo.pkl"), "--sim-name", "fixed"]
+    aot = tmp_path / "aot"
+    aot.mkdir()
+    with caplog.at_level(logging.WARNING, logger="streamyolo_torch"):
+        t_stream_det.main([*bf16, "--out-dir", str(tmp_path / "miss"), "--aot-dir", str(aot)])
+    assert not made[-1].aot_loaded
+    assert any("no captured-graph manifests" in r.message for r in caplog.records)
+    paths = t_precompile.main(["-f", CONFIG, "--serve", str(aot), "--streams", "2", "--device",
+                               "cpu", "-b", "1", "test_size", f"({RAW[0] // 2}, {RAW[1] // 2})"])
+    assert len(paths["serve"]) == 6 and all(os.path.isfile(p) for p in paths["serve"])
+    info = t_stream_det.main([*bf16, "--out-dir", str(tmp_path / "hit"), "--aot-dir", str(aot)])
+    det = made[-1]
+    assert det.aot_loaded and det.graphs is not None
+    # stars: the probe's, the warm-up's, one per sequence; calls after the probe
+    # and the warm-up: one per result, and at most one per sequence whose
+    # result lands past the horizon
+    calls = sum(det.graphs.replays) - 2 - t_stream_det.WARMUP_FRAMES
+    assert det.graphs.replays[0] == 4
+    assert info["n_processed"] <= calls <= info["n_processed"] + 2
+    for seq in ("seq00", "seq01"):
+        hit, miss = load(tmp_path / "hit" / f"{seq}.pkl"), load(tmp_path / "miss" / f"{seq}.pkl")
+        assert hit["timestamps"] == miss["timestamps"] and len(hit["results_parsed"]) > 0
+        for a, b in zip(hit["results_parsed"], miss["results_parsed"], strict=True):
+            assert all(np.array_equal(u, v) for u, v in zip(a[:3], b[:3]))
+
     argv = [*runs["common"], "--out-dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_stream_det.main([*argv, "--aot-dir", str(tmp_path)])
     pkl = [a if a != runs["weights"] else str(tmp_path / "w.pkl") for a in argv]
     with pytest.raises(ValueError, match="export_safetensors"):
         t_stream_det.main(pkl)
