@@ -24,7 +24,9 @@ its first-batch guard and the dual-frame forward, kernel B1 at K = 1000, the
 ONEX evaluator, native COCOeval) on 2 in-memory synthetic sequences of 11 raw
 1200x1920 frames in batches of 8. Last, it trains StreamYOLO-l at full width
 through ``streamyolo_torch/tools/train.py``'s entry (bf16 autocast, batch 8,
-2 epochs on 2 in-memory synthetic sequences of 24 raw 1200x1920 frames,
+2 epochs on 2 in-memory synthetic sequences of 24 raw 1200x1920 frames, the
+first on the mosaic branch, which the loader workers build in NumPy without
+cv2, its samples' digest held to cv2's bytes as the CPU tests pin them,
 multiscale, the EMA eval after each epoch with kernel B1, checkpoints,
 ``--resume``, the eval CLI on the checkpoint), holds one float32 train step
 of the card against the CPU, and checks the learning signal of a fixed-batch
@@ -41,7 +43,8 @@ host path, ``device_preproc``, int8 and 8 streams, then ``stream_det
 calibration, BN fold, the int8 conv kernel ``csrc/int8_conv.cu`` held bit
 for bit against its plain version at every conv shape of the step) and
 serves it, trains a tiny StreamYOLO with the port on the synthetic video and
-scores it offline (float and int8; the dedup eval's rows against the
+scores it offline (float and int8, each layer's int8 calibration range
+reported; the dedup eval's rows against the
 dual-frame eval's, box-matched), streaming under the wall clock, in
 simulation at the measured step and at 45 ms, and forecast. Last, it trains
 data-parallel (``streamyolo_torch/parallel``): a float32 step of StreamYOLO-l
@@ -54,7 +57,9 @@ one JSON line; the line before the last lists the kernels, with their
 launches on every path (from graphs: launches captured per graph x
 replays), and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
-no result. Imports nothing of JAX.
+no result. Imports nothing of JAX. ``--only train`` (or
+``trained_e2e``, ``aot_serve``, ``data_parallel``) runs the build and that
+phase alone.
 """
 
 from __future__ import annotations
@@ -89,6 +94,10 @@ EVAL_CONFIG, EVAL_SEQS, EVAL_FRAMES, EVAL_BATCH, EVAL_BIG_BATCH = (
     "l_s50_onex_dfp_tal_filp", 2, 11, 8, 64)
 EVAL_TOPK = 1000  # postprocess_fixed's default, the evaluators' K
 TRAIN_SEQS, TRAIN_FRAMES, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_WORKERS = 2, 24, 8, 2, 4
+# the first epoch on the mosaic branch: YOLOX closes the mosaic before epoch
+# max_epoch - no_aug_epochs (1-based), so 0 keeps it for epoch 1 of 2
+TRAIN_NO_AUG_EPOCHS = 0
+MOSAIC_TIMED_SAMPLES = 8  # mosaic pair items timed on the host, main process
 GRAD_INPUT, GRAD_BATCH = (192, 320), 2  # the float32 card-vs-CPU train step
 TRAIN_TEST_CONF = 1e-4
 OVERFIT_STEPS, OVERFIT_LR = 60, 5e-3  # the JAX package's overfit recipe
@@ -104,7 +113,11 @@ E2E_SEQS, E2E_FRAMES, E2E_RAW, E2E_OBJ_FRAC = 4, 75, (300, 480), (1 / 8, 1 / 4)
 # the main process costs a few ms
 E2E_BATCH, E2E_EPOCHS, E2E_LR_PER_IMG, E2E_WORKERS = 16, 22, 0.02 / 16, 0
 E2E_EVAL_BATCH = 64  # the eval CLI's default batch: few batches, few cuDNN autotunes
-E2E_CALIB_BATCHES = 2  # the int8 eval's calibration batches
+# the int8 eval's calibration batches: the eval CLI's default, which covers
+# the whole 300-frame val split at batch 64 (5 batches). The 2 of PRs 7-10
+# run beside it, reported and not checked: their calibration missed the
+# range of layers on the later sequences (ROADMAP C.4)
+E2E_CALIB_BATCHES, E2E_CALIB_BATCHES_FEW = 8, 2
 # ROADMAP C.1: dedup rows without a box-matched partner in the --no-dedup
 # rows (and the reverse), at most this share of both runs' rows
 E2E_UNMATCHED_MAX = 0.01
@@ -140,8 +153,13 @@ NMS_OPS_PER_IOU = 14
 PREPROC_OPS_PER_VALUE = 8
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    elapsed = round(time.perf_counter() - _T0, 1)
+    print(json.dumps({"phase": phase, "elapsed_s": elapsed, **fields}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -832,8 +850,14 @@ def phase_train(out_dir: Path) -> dict:
     StreamYOLO-l at full width (``l_s50_onex_dfp_tal_filp``), ``--fp16``
     (bf16 autocast, float32 master weights), batch 8, 2 epochs of the
     config's multiscale sizes on 2x24 raw 1200x1920 synthetic train frames,
-    the EMA eval after each epoch (sequential-dedup, guard armed) on the
-    offline eval's 2x11 val frames, all in memory (annotation jsons under ``build/``).
+    the first on the mosaic branch (the loader workers build each item as
+    four letterboxed pairs on a 1200x1920 canvas warped back to 600x960,
+    in NumPy: the card's host has no cv2), the EMA eval after each epoch
+    (sequential-dedup, guard armed) on the offline eval's 2x11 val frames,
+    all in memory (annotation jsons under ``build/``). Before it, the host
+    ms of a mosaic pair item at 600x960 and the SHA-256 of
+    ``tools/augment_check.py``'s samples against the constant the CPU tests
+    pin to cv2's bytes; after it, no cv2 in ``sys.modules``.
     Checks finite losses, B1 once per eval batch per epoch (B2 never), at
     least two input sizes, the checkpoints, ``--resume`` (step and epoch),
     and the eval CLI's COCO rows on ``latest_ckpt.pth`` against the
@@ -861,6 +885,30 @@ def phase_train(out_dir: Path) -> dict:
                 "labels": torch.from_numpy(np.stack([it[1][0] for it in items])).cuda(),
                 "support_labels": torch.from_numpy(np.stack([it[1][1] for it in items])).cuda()}
 
+    # the mosaic on the card's host: items of the pair wrapper's mosaic
+    # branch at 600x960 from the 1200x1920 frames, and the augment samples'
+    # digest (mosaic + mixup + HSV, the perspective warp, --cache)
+    from streamyolo_torch.tools import augment_check
+
+    wrapper = exp.dataset  # the MosaicDetection under the loader's index unpacking
+    wrapper.enable_mosaic = True
+    random.seed(SEED)
+    mosaic_ms = []
+    for i in range(MOSAIC_TIMED_SAMPLES):
+        t = time.perf_counter()
+        item = wrapper[i]
+        mosaic_ms.append(1e3 * (time.perf_counter() - t))
+    check(item[0].shape == (*INPUT, 6), f"a mosaic item is {item[0].shape}")
+    wrapper.enable_mosaic = False
+    aug_dir = out_dir / "augment_check"
+    if aug_dir.exists():
+        import shutil
+
+        shutil.rmtree(aug_dir)
+    digest = augment_check.port_digest(str(aug_dir))
+    check(digest == augment_check.AUGMENT_DIGEST,
+          f"augment samples digest {digest} is not cv2's {augment_check.AUGMENT_DIGEST}")
+
     init = train_init(exp)
     torch.save(init, out_dir / "init.pth")
     cfg = f"cfgs/{EVAL_CONFIG}.py"
@@ -868,7 +916,8 @@ def phase_train(out_dir: Path) -> dict:
     # start), so the eval of the short run has rows to compare
     data_opts = ["data_dir", str(out_dir), "output_dir", str(out_dir / "runs"),
                  "test_conf", str(TRAIN_TEST_CONF)]
-    train_opts = [*data_opts, "max_epoch", str(TRAIN_EPOCHS), "no_aug_epochs", str(TRAIN_EPOCHS),
+    train_opts = [*data_opts, "max_epoch", str(TRAIN_EPOCHS),
+                  "no_aug_epochs", str(TRAIN_NO_AUG_EPOCHS),
                   "warmup_epochs", "1", "data_num_workers", str(TRAIN_WORKERS),
                   "save_history_ckpt", "False", "print_interval", "3", "seed", str(SEED)]
     run_dir = out_dir / "runs" / "train"
@@ -906,6 +955,11 @@ def phase_train(out_dir: Path) -> dict:
     check(not list(run_dir.glob("*.tmp")), "train: a temporary checkpoint was left behind")
     check([e["epoch"] for e in trainer.eval_history] == list(range(1, TRAIN_EPOCHS + 1)),
           "train: not one eval per epoch")
+    mosaic_epochs = torch.load(run_dir / "last_mosaic_epoch_ckpt.pth")["start_epoch"] - 1
+    check(mosaic_epochs == TRAIN_EPOCHS - 1 and trainer.no_aug,
+          f"train: {mosaic_epochs} mosaic epochs, not {TRAIN_EPOCHS - 1}")
+    check("cv2" not in sys.modules or sys.modules["cv2"] is None,
+          "train: cv2 was imported on the mosaic path")
 
     # --resume: step and epoch restored (max_epoch reached: no further step)
     resumed = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
@@ -940,12 +994,26 @@ def phase_train(out_dir: Path) -> dict:
 
     warm = {f"{h}x{w}": ms[1:] for (h, w), ms in by_size.items()}
     step_ms = statistics.median(warm[f"{INPUT[0]}x{INPUT[1]}"])
+    # the data wait's share of (wait + device step) per epoch, mosaic then
+    # plain, over the steps after the first (which waits for the epoch's
+    # loader workers to start)
+    per_epoch = [trainer.step_log[e * trainer.max_iter + 1:(e + 1) * trainer.max_iter]
+                 for e in range(TRAIN_EPOCHS)]
+    wait_share = [sum(w for _, _, w in ep) / sum(w + ms for _, ms, w in ep) for ep in per_epoch]
     times = {"step_ms_600x960": step_ms,
              "images_per_s_600x960": TRAIN_BATCH * 1e3 / step_ms,
              "step_ms_warm_by_size": {k: statistics.median(v) for k, v in warm.items() if v},
              "steps_timed_by_size": {k: len(v) for k, v in warm.items()},
              "data_wait_ms_per_step": data_ms,
              "data_wait_ms_median": statistics.median(data_ms),
+             "data_wait_share_mosaic_epoch": wait_share[0],
+             "data_wait_share_plain_epoch": wait_share[-1],
+             "data_wait_ms_median_mosaic_epoch": statistics.median(
+                 w for _, _, w in per_epoch[0]),
+             "data_wait_ms_median_plain_epoch": statistics.median(
+                 w for _, _, w in per_epoch[-1]),
+             "mosaic_host_ms_per_item": mosaic_ms,
+             "mosaic_host_ms_per_item_median": statistics.median(mosaic_ms),
              "host_iter_ms_per_step": 1e3 * trainer.meter["iter_time"].global_avg,
              "peak_device_memory_gb": peak_gb,
              "eval_ms_per_image_by_epoch": [e["ms_per_image"] for e in trainer.eval_history],
@@ -1026,6 +1094,8 @@ def phase_train(out_dir: Path) -> dict:
          steps=steps, data_num_workers=TRAIN_WORKERS,
          fixture=f"train {TRAIN_SEQS}x{TRAIN_FRAMES}, val {EVAL_SEQS}x{EVAL_FRAMES} frames "
                  f"{raw_size[0]}x{raw_size[1]} synthetic, in memory",
+         no_aug_epochs=TRAIN_NO_AUG_EPOCHS, mosaic_epochs=mosaic_epochs,
+         augment_digest=digest, augment_digest_equal=True, cv2_loaded=False,
          sizes=sorted(f"{h}x{w}" for h, w in by_size), losses_logged=logged,
          eval_batches=n_eval_batches, launches=launches, eval_ap=100 * float(ap),
          eval_rows=len(rows_trainer), eval_rows_infinite_box=inf_rows,
@@ -2432,6 +2502,34 @@ class Exp(SmallExp):
 '''
 
 
+def calibration_ranges(cfg: Path, ckpt: str, load_frame, data_opts) -> dict:
+    """ROADMAP C.4: each quantized layer's calibration absmax (its input's,
+    as ``quant/ptq.py::calibrate_activations`` observes it: the bf16 model
+    of ``tools/eval.py --fp16``, ``off_pipe``) over the first
+    ``E2E_CALIB_BATCHES_FEW`` val batches, against its absmax over every
+    val batch, which the int8 eval meets: a ratio above 1 is a range the
+    per-tensor scale clips. The layers by ratio, worst first."""
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.quant.ptq import calibrate_activations, flax_module_path
+    from streamyolo_torch.tools.eval import load_checkpoint
+    from streamyolo_torch.utils.weights import merge_state_dict
+
+    exp = get_exp(str(cfg)).merge(data_opts)
+    exp.compute_dtype = "bfloat16"
+    model = exp.get_model("cuda")
+    model.load_state_dict(merge_state_dict(exp.init_model(), load_checkpoint(ckpt), strict=True))
+    batches = [b[0] for b in exp.get_evaluator(E2E_EVAL_BATCH, load_frame=load_frame).dataloader]
+    few = calibrate_activations(model, batches[:E2E_CALIB_BATCHES_FEW])
+    full = calibrate_activations(model, batches)
+    layers = sorted(({"layer": flax_module_path(n), "calib": float(few[n].max()),
+                      "all": float(full[n].max()),
+                      "ratio": float(full[n].max()) / max(float(few[n].max()), 1e-30)}
+                     for n in full), key=lambda r: -r["ratio"])
+    return {"batches": len(batches), "calib_batches": E2E_CALIB_BATCHES_FEW,
+            "layers": len(layers), "clipped": sum(r["ratio"] > 1 for r in layers),
+            "worst": layers[:8]}
+
+
 def phase_trained_e2e(out_dir: Path) -> dict:
     """Train a tiny StreamYOLO with the port and score it five ways (the
     done criterion of ROADMAP item 9). The synthetic video at its defaults
@@ -2446,7 +2544,10 @@ def phase_trained_e2e(out_dir: Path) -> dict:
     ``--no-dedup``, float and ``--int8``), (b) ``stream_det`` under the wall
     clock with ``--device-preproc`` and ``streaming_eval`` against the
     annotations, (c) ``--sim-zoo`` at (b)'s measured runtimes, (d) at
-    ``E2E_SLOW_S``, (e) ``forecast_kf`` on (d). Checks: (a) AP50 >= 20, the
+    ``E2E_SLOW_S``, (e) ``forecast_kf`` on (d). The int8 eval calibrates
+    on ``E2E_CALIB_BATCHES``; one on ``E2E_CALIB_BATCHES_FEW`` and each
+    layer's calibration range against the eval's are reported beside it
+    (ROADMAP C.4). Checks: (a) AP50 >= 20, the
     int8 AP50 within 5 and AP within 8 points of the float eval's, and
     (ROADMAP C.1) the dedup rows against the ``--no-dedup`` rows,
     box-matched, within the guard's bf16 tolerance with at most
@@ -2509,14 +2610,19 @@ def phase_trained_e2e(out_dir: Path) -> dict:
     # E2E_CALIB_BATCHES val batches)
     offline = {}
     int8_args = ["--int8", "--calib-batches", str(E2E_CALIB_BATCHES)]
+    few_args = ["--int8", "--calib-batches", str(E2E_CALIB_BATCHES_FEW)]
     for name, extra in (("dedup", []), ("no_dedup", ["--no-dedup"]), ("int8", int8_args),
-                        ("int8_no_dedup", [*int8_args, "--no-dedup"])):
+                        ("int8_no_dedup", [*int8_args, "--no-dedup"]),
+                        ("int8_calib_few", few_args)):
         res = counted(f"eval_{name}", lambda extra=extra: eval_tool.main(
             ["-f", str(cfg), "-c", ckpt, "-b", str(E2E_EVAL_BATCH), "--fp16", "-expn",
              f"eval_{name}", *extra, *data_opts], load_frame=synth.frame))
         offline[name] = res
     a = {k: {"AP": 100 * offline[k]["ap"], "AP50": 100 * offline[k]["ap50"],
              "rows": len(offline[k]["rows"])} for k in offline}
+    int8_gaps = {k: {"AP": a["dedup"]["AP"] - a[k]["AP"], "AP50": a["dedup"]["AP50"] - a[k]["AP50"]}
+                 for k in ("int8", "int8_calib_few")}
+    ranges = calibration_ranges(cfg, ckpt, synth.frame, data_opts)
     # ROADMAP C.1: every batch of the dedup eval against the dual-frame
     # eval, box-matched, within the guard's bf16 tolerance at the model's
     # input scale
@@ -2575,7 +2681,10 @@ def phase_trained_e2e(out_dir: Path) -> dict:
                  "eval_batch": E2E_EVAL_BATCH},
          train_s=train_s, train_step_ms_median=statistics.median(warm_ms) if warm_ms else None,
          losses_last_window=losses, table=table,
-         offline_eval=a, dedup_vs_no_dedup_rows_cudnn=c1, scores=scored,
+         offline_eval=a, int8_calib_batches={"checked": E2E_CALIB_BATCHES,
+                                             "reported": E2E_CALIB_BATCHES_FEW},
+         int8_gap_points=int8_gaps, calibration_ranges=ranges,
+         dedup_vs_no_dedup_rows_cudnn=c1, scores=scored,
          launches=launches)
     check(all(np.isfinite(losses)), f"trained_e2e: a loss is not finite: {losses}")
     check(a["dedup"]["AP50"] >= 20.0, f"trained_e2e: offline AP50 {a['dedup']['AP50']} < 20")
@@ -2611,9 +2720,9 @@ def new_path_launches(kernel: str, cli: dict, streamer: dict, trained: dict) -> 
 
 
 def main(only: str = None) -> int:
-    """The whole script; ``only="data_parallel"`` or ``"aot_serve"`` runs the
-    device line, the build and that phase alone (for work on it), and prints
-    no result."""
+    """The whole script; ``only`` (``"data_parallel"``, ``"aot_serve"``,
+    ``"train"`` or ``"trained_e2e"``) runs the device line, the build and
+    that phase alone (for work on it), and prints no result."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2651,6 +2760,12 @@ def main(only: str = None) -> int:
     if only == "aot_serve":
         phase_aot_serve(Path(__file__).resolve().parent / "build" / "chip_smoke_aot",
                         rehearsal_fixture(), smi)
+        return 0
+    if only == "train":
+        phase_train(Path(__file__).resolve().parent / "build" / "chip_smoke_train")
+        return 0
+    if only == "trained_e2e":
+        phase_trained_e2e(Path(__file__).resolve().parent / "build" / "chip_smoke_trained")
         return 0
 
     # 3. B1 against its plain versions (fixed point on the card, sweep on the CPU)
@@ -2993,6 +3108,8 @@ def main(only: str = None) -> int:
          "launches_by_path": {"int8_serving": int8["launches"]["int8_conv"],
                               "int8_eval": trained["eval_int8"]["int8_conv"],
                               "int8_eval_no_dedup": trained["eval_int8_no_dedup"]["int8_conv"],
+                              "int8_eval_calib_few":
+                                  trained["eval_int8_calib_few"]["int8_conv"],
                               **graph_launches("int8_conv")},
          "graph_launches": graph_note},
     ]
@@ -3010,6 +3127,7 @@ if __name__ == "__main__":
         sys.exit(aot_export_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
         sys.exit(aot_serve_main(sys.argv[2]))
-    if sys.argv[1:] in (["--only", "data_parallel"], ["--only", "aot_serve"]):
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in (
+            "data_parallel", "aot_serve", "train", "trained_e2e"):
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -8,3 +8,7 @@ kernels of the JAX package are hand-written CUDA kernels here
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+from streamyolo_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -19,8 +19,14 @@ imported only there), or e.g. ``SyntheticArgoverse.frame`` for frames kept
 in memory. The annotation tuples hold the image dicts where the JAX package
 holds file names. ``input_dim`` is the mutable letterbox size of the
 transforms (the yolox ``Dataset.input_dim`` indirection); frames are read
-resized to ``img_size``. The ``--cache`` memmap of resized frames is not
-ported yet: ``cache=True`` raises.
+resized to ``img_size``.
+
+``cache=True`` (``--cache``) keeps every frame, read and resized once, in a
+uint8 memmap ``<data_dir>/img_resized_cache_<name>.array`` of shape
+``[len, img_size[0], img_size[1], 3]``, each frame at the top-left of its
+row: the JAX package's file, byte for byte. An existing file is reused as
+it stands. Items are then read from the memmap (the pair datasets read the
+support frame from its own row).
 """
 
 from __future__ import annotations
@@ -31,10 +37,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 from streamyolo_torch.data.coco import COCO
-from streamyolo_torch.data.transforms import resize_u8
-
-CACHE_MESSAGE = ("--cache (the memmap of resized frames) is not ported yet "
-                 "(ROADMAP queue A item 12, the augmentation path without cv2)")
+from streamyolo_torch.data.cv2_ops import resize_u8
 
 
 def imread(path: str) -> np.ndarray:
@@ -64,8 +67,6 @@ class _ArgoverseBase:
         load_frame: Optional[Callable[[dict], np.ndarray]] = None,
         cache: bool = False,
     ):
-        if cache:
-            raise NotImplementedError(CACHE_MESSAGE)
         self.data_dir = data_dir
         self.json_file = json_file
         self.coco = COCO(os.path.join(data_dir, "Argoverse-HD", "annotations", json_file))
@@ -78,7 +79,13 @@ class _ArgoverseBase:
         self.enable_mosaic = False
         self.preproc = preproc
         self.load_frame = load_frame or self._imread
+        # the support frame's dataset index per id (filled by the pair
+        # datasets' _load_anno_from_id): the cache serves it from its row
+        self._support_idx = {}
         self.annotations = [self._load_anno_from_id(i) for i in self.ids]
+        self.imgs = None
+        if cache:
+            self._cache_images()
 
     @property
     def input_dim(self):
@@ -127,6 +134,25 @@ class _ArgoverseBase:
         r = min(self.img_size[0] / img.shape[0], self.img_size[1] / img.shape[1])
         return resize_u8(img, int(img.shape[0] * r), int(img.shape[1] * r))
 
+    _IM_ANN_SLOT = 4  # where an annotation tuple holds its image dict
+
+    def _cache_images(self):
+        max_h, max_w = int(self.img_size[0]), int(self.img_size[1])
+        cache_file = os.path.join(self.data_dir, f"img_resized_cache_{self.name}.array")
+        shape = (len(self.ids), max_h, max_w, 3)
+        if not os.path.exists(cache_file):
+            imgs = np.memmap(cache_file, shape=shape, dtype=np.uint8, mode="w+")
+            for i in range(len(self.ids)):
+                img = self._read_resized(self.annotations[i][self._IM_ANN_SLOT])
+                imgs[i, : img.shape[0], : img.shape[1]] = img
+            imgs.flush()
+            del imgs
+        self.imgs = np.memmap(cache_file, shape=shape, dtype=np.uint8, mode="r+")
+
+    def _cached_img(self, index) -> np.ndarray:
+        h, w = self.annotations[index][self._IM_ANN_SLOT - 1]  # the resized size
+        return self.imgs[index][:h, :w].copy()
+
 
 class ONE_ARGOVERSEDataset(_ArgoverseBase):
     """1x velocity: support frame t-1, target labels t+1."""
@@ -145,6 +171,7 @@ class ONE_ARGOVERSEDataset(_ArgoverseBase):
             im_ann_support = im_ann
         else:
             im_ann_support = self.coco.loadImgs(id_ - 1)[0]
+        self._support_idx[int(id_)] = int(im_ann_support["id"])
 
         if id_ in (seq_len - 1, seq_len - 2):
             annotations = self.coco.img_to_anns.get(int(seq_len), [])
@@ -164,8 +191,12 @@ class ONE_ARGOVERSEDataset(_ArgoverseBase):
     def pull_item(self, index):
         id_ = self.ids[index]
         res, support_res, img_info, _, im_ann, im_ann_support = self.annotations[index]
-        img = self._read_resized(im_ann)
-        support_img = self._read_resized(im_ann_support)
+        if self.imgs is not None:
+            img = self._cached_img(index)
+            support_img = self._cached_img(self._support_idx[int(id_)])
+        else:
+            img = self._read_resized(im_ann)
+            support_img = self._read_resized(im_ann_support)
         return img, support_img, res.copy(), support_res.copy(), img_info, np.array([id_])
 
     def __getitem__(self, index):
@@ -200,6 +231,7 @@ class TWO_ARGOVERSEDataset(ONE_ARGOVERSEDataset):
             im_ann_support = self.coco.loadImgs(id_ - 1)[0]
         else:
             im_ann_support = self.coco.loadImgs(id_ - 2)[0]
+        self._support_idx[int(id_)] = int(im_ann_support["id"])
 
         if id_ in (seq_len - 1, seq_len - 2):
             annotations = self.coco.img_to_anns.get(int(seq_len), [])
@@ -224,6 +256,8 @@ class TWO_ARGOVERSEDataset(ONE_ARGOVERSEDataset):
 class STILL_ARGOVERSEDataset(_ArgoverseBase):
     """Single-frame dataset: labels of frame t."""
 
+    _IM_ANN_SLOT = 3
+
     def _load_anno_from_id(self, id_):
         im_ann = self.coco.loadImgs(id_)[0]
         width, height = im_ann["width"], im_ann["height"]
@@ -234,7 +268,8 @@ class STILL_ARGOVERSEDataset(_ArgoverseBase):
     def pull_item(self, index):
         id_ = self.ids[index]
         res, img_info, _, im_ann = self.annotations[index]
-        return self._read_resized(im_ann), res.copy(), img_info, np.array([id_])
+        img = self._cached_img(index) if self.imgs is not None else self._read_resized(im_ann)
+        return img, res.copy(), img_info, np.array([id_])
 
     def __getitem__(self, index):
         img, target, img_info, img_id = self.pull_item(index)

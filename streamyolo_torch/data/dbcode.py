@@ -14,9 +14,9 @@
 
 ``cv2`` is imported only where a JPEG is written or read. The generator
 draws from its RNG in the JAX package's order, so the annotations are the
-same; the background is upscaled by ``resize_linear_u8``, cv2's
-``INTER_LINEAR`` fixed-point arithmetic in NumPy (within one grey level of
-``cv2.resize``).
+same; the background is upscaled by ``data/cv2_ops.py::resize_u8``, equal
+to ``cv2.resize`` with ``INTER_LINEAR`` bit for bit, so the frames are the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from streamyolo_torch.data.argoverse_classes import ARGOVERSE_CLASSES, COCO_SUBSET
+from streamyolo_torch.data.cv2_ops import resize_u8
 
 COCO_CLASSES = (
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
@@ -53,47 +54,6 @@ PALETTE = (
     (60, 200, 255), (80, 255, 120), (255, 160, 60), (200, 80, 255),
     (255, 255, 80), (120, 120, 255), (255, 100, 180), (90, 255, 255),
 )
-
-_COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
-
-
-def _linear_taps(n_in: int, n_out: int):
-    """cv2's source indices and fixed-point weights along one axis: the
-    half-pixel map in float32, clamped at both borders."""
-    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
-    i0 = np.floor(f).astype(np.int64)
-    frac = f - i0.astype(np.float32)
-    low, high = i0 < 0, i0 >= n_in - 1
-    i0[low], frac[low] = 0, 0
-    i0[high], frac[high] = n_in - 1, 0
-    i1 = np.minimum(i0 + 1, n_in - 1)
-    scale = np.float32(1 << _COEF_BITS)
-    w0 = np.rint((np.float32(1) - frac) * scale).astype(np.int64)
-    w1 = np.rint(frac * scale).astype(np.int64)
-    return i0, i1, w0, w1
-
-
-def resize_linear_u8(src: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """``cv2.resize(src, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
-    for an [H, W, C] uint8 image: a horizontal pass in 11-bit fixed point,
-    then cv2's vectorised vertical pass (two 16x16 -> high-16 products,
-    summed, rounded off by 2 bits). cv2's scalar tail rounds once instead,
-    so a few values differ by one grey level. An exact 2x downsample (the
-    letterbox of 1200x1920 Argoverse-HD frames at r = 0.5) takes the
-    closed form of the same arithmetic: taps 1/2, 1/2 on both axes give
-    ``(a + b + c + d + 2) >> 2`` of each 2x2 block."""
-    if src.shape[0] == 2 * out_h and src.shape[1] == 2 * out_w:
-        s = src.astype(np.uint16)
-        acc = s[0::2, 0::2] + s[1::2, 0::2] + s[0::2, 1::2] + s[1::2, 1::2]
-        return ((acc + 2) >> 2).astype(np.uint8)
-    # int32 holds every intermediate: rows <= 255 * 2048 >> 4, times <= 2048
-    x0, x1, wx0, wx1 = (a.astype(np.int32) for a in _linear_taps(src.shape[1], out_w))
-    y0, y1, wy0, wy1 = (a.astype(np.int32) for a in _linear_taps(src.shape[0], out_h))
-    s = src.astype(np.int32)
-    rows = (s[:, x0] * wx0[None, :, None] + s[:, x1] * wx1[None, :, None]) >> 4
-    acc = ((rows[y0] * wy0[:, None, None]) >> 16) + ((rows[y1] * wy1[:, None, None]) >> 16)
-    return np.clip((acc + 2) >> 2, 0, 255).astype(np.uint8)
-
 
 def db_from_img_folder(
     img_dir: str,
@@ -210,7 +170,7 @@ class SyntheticArgoverse:
         img_id = ann_id = 0
         for sid, n_frames in enumerate(seq_lens):
             # fixed per-sequence textured background (coarse noise, upscaled)
-            self.backgrounds.append(resize_linear_u8(
+            self.backgrounds.append(resize_u8(
                 rng.randint(20, 90, (h // 10, w // 10, 3), np.uint8), h, w))
             objs = []
             lo, hi = obj_frac  # object extent as a fraction of the frame

@@ -1,41 +1,137 @@
-"""Host-side transforms: the letterbox ``preproc``, the train transforms
-(flag-driven mirror, letterbox, cxcywh labels padded to ``max_labels``)
-and the val transforms, the counterparts of
-``streamyolo_tpu/data/transforms.py``.
+"""Host-side transforms, the counterparts of
+``streamyolo_tpu/data/transforms.py``: the letterbox ``preproc``, the HSV
+jitter ``augment_hsv``, the mosaic's ``random_perspective`` (with
+``box_candidates`` / ``warp_keep_mask``), the train transforms (HSV jitter,
+flag-driven mirror, letterbox, cxcywh labels padded to ``max_labels``) and
+the val transforms.
 
-The card's machine has no cv2, so the resize is the port's own NumPy
-``INTER_LINEAR`` (``data/dbcode.py::resize_linear_u8``, cv2's fixed-point
-arithmetic) on every host. At the 0.5 ratio of every shipped config on
-1200x1920 Argoverse-HD it equals cv2 bit for bit (there cv2 takes its
-2x2-average path, and the fixed-point taps are 1/2, 1/2); elsewhere it is
-within one grey level.
+The card's machine has no cv2, so every pixel operation here is the port's
+NumPy counterpart of the cv2 call the JAX package makes
+(``data/cv2_ops.py``), equal to it bit for bit: the resize, the warps and
+the colour conversions. cv2 is never imported, even where it is installed.
 
-``DoubleTrainTransform`` mirrors both frames of a pair with ONE coin flip
-from Python's ``random`` (the temporal pair stays consistent). The HSV
-jitter (``augment_hsv``, cv2's colour conversions) is not ported yet:
-``hsv=True`` raises (the shipped configs set ``hsv=False``).
+Random draws keep the JAX package's order, Python's ``random`` and NumPy's
+global generator alike: ``DoubleTrainTransform`` mirrors both frames of a
+pair with ONE coin flip (``random.randrange(2)``), ``augment_hsv`` draws
+its three gains from ``np.random``, and ``random_perspective`` draws its
+warp from ``random`` so that the mosaic can replay it on the support frame.
 """
 
 from __future__ import annotations
 
+import math
 import random
 from typing import Sequence, Tuple
 
 import numpy as np
 
-from streamyolo_torch.data.dbcode import resize_linear_u8
+from streamyolo_torch.data.cv2_ops import (
+    bgr2hsv_u8,
+    hsv2bgr_u8,
+    resize_u8,
+    warp_affine_u8,
+    warp_perspective_u8,
+)
 from streamyolo_torch.ops.boxes import xyxy2cxcywh
 
-HSV_MESSAGE = ("hsv=True needs augment_hsv (cv2 colour conversions), which is not ported "
-               "yet (ROADMAP queue A item 12, the augmentation path without cv2)")
+def augment_hsv(img: np.ndarray, hgain=0.015, sgain=0.7, vgain=0.4) -> None:
+    """In-place HSV gain jitter of a BGR uint8 image: one gain per channel,
+    uniform in ``1 +/- gain`` from ``np.random``; the hue is scaled modulo
+    cv2's 0..179 range, saturation and value are clipped at 255."""
+    gains = 1.0 + np.random.uniform(-1.0, 1.0, 3) * (hgain, sgain, vgain)
+    hsv = bgr2hsv_u8(img).astype(np.float64)
+    hsv[..., 0] = (np.floor(hsv[..., 0]) * gains[0]) % 180
+    hsv[..., 1:] = np.clip(hsv[..., 1:] * gains[1:], 0, 255)
+    img[...] = hsv2bgr_u8(hsv.astype(img.dtype))
 
 
-def resize_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """``cv2.resize(img, (out_w, out_h), INTER_LINEAR)`` for an [H, W, 3]
-    uint8 image; the same size returns the image itself (cv2 copies)."""
-    if img.shape[:2] == (out_h, out_w):
-        return img
-    return resize_linear_u8(img, out_h, out_w)
+def warp_keep_mask(before: np.ndarray, after: np.ndarray, min_side: float = 2.0,
+                   max_aspect: float = 20.0, min_area_frac: float = 0.2) -> np.ndarray:
+    """Which of the (n, 4) xyxy boxes survive a warp: ``before`` (already at
+    the warp's scale) and ``after``. A box survives if both warped sides
+    exceed ``min_side`` px, it keeps more than ``min_area_frac`` of its
+    area, and its aspect ratio stays under ``max_aspect``."""
+    eps = 1e-16
+    bw, bh = (before[:, 2] - before[:, 0]), (before[:, 3] - before[:, 1])
+    aw, ah = (after[:, 2] - after[:, 0]), (after[:, 3] - after[:, 1])
+    aspect = np.maximum(aw / (ah + eps), ah / (aw + eps))
+    keep = (aw > min_side) & (ah > min_side)
+    keep &= aw * ah > min_area_frac * (bw * bh + eps)
+    keep &= aspect < max_aspect
+    return keep
+
+
+def box_candidates(box1, box2, wh_thr=2, ar_thr=20, area_thr=0.2):
+    """The yolox ``box_candidates`` surface: (4, n) corner-stacked boxes
+    before and after, through ``warp_keep_mask``."""
+    return warp_keep_mask(np.asarray(box1).T, np.asarray(box2).T, min_side=wh_thr,
+                          max_aspect=ar_thr, min_area_frac=area_thr)
+
+
+def _sample_warp_matrix(size_hw: Tuple[int, int], out_hw: Tuple[int, int], degrees: float,
+                        translate: float, scale: Tuple[float, float],
+                        shear: float) -> Tuple[np.ndarray, float]:
+    """One random rotate / scale / shear / translate warp as a 3x3 matrix
+    and its zoom. Right to left: recentre the source on its middle, rotate
+    by a uniform angle while scaling, shear each axis, then put the origin
+    at a jittered point of the output. Six draws from ``random`` in a fixed
+    order, so that a caller can replay the warp by restoring the state."""
+    angle = math.radians(random.uniform(-degrees, degrees))
+    zoom = random.uniform(scale[0], scale[1])
+    shear_x = math.tan(math.radians(random.uniform(-shear, shear)))
+    shear_y = math.tan(math.radians(random.uniform(-shear, shear)))
+    tx = random.uniform(0.5 - translate, 0.5 + translate) * out_hw[1]
+    ty = random.uniform(0.5 - translate, 0.5 + translate) * out_hw[0]
+
+    recenter = np.array([[1, 0, -size_hw[1] / 2], [0, 1, -size_hw[0] / 2], [0, 0, 1]],
+                        np.float64)
+    cos_a, sin_a = zoom * math.cos(angle), zoom * math.sin(angle)
+    # y grows downward: a positive angle turns counter-clockwise on screen
+    rot = np.array([[cos_a, sin_a, 0], [-sin_a, cos_a, 0], [0, 0, 1]], np.float64)
+    sh = np.array([[1, shear_x, 0], [shear_y, 1, 0], [0, 0, 1]], np.float64)
+    shift = np.array([[1, 0, tx], [0, 1, ty], [0, 0, 1]], np.float64)
+    return shift @ sh @ rot @ recenter, zoom
+
+
+def _warp_boxes(boxes: np.ndarray, matrix: np.ndarray, out_hw: Tuple[int, int],
+                perspective: float) -> np.ndarray:
+    """(n, 4) xyxy boxes through the warp: the four corners mapped, their
+    axis-aligned hull, clipped to the output."""
+    x1, y1, x2, y2 = boxes.T
+    corners = np.stack([np.stack([x1, y1], -1), np.stack([x2, y2], -1),
+                        np.stack([x1, y2], -1), np.stack([x2, y1], -1)], axis=1)
+    warped = corners @ matrix[:2, :2].T + matrix[:2, 2]
+    if perspective:
+        w = corners @ matrix[2, :2].T + matrix[2, 2]
+        warped = warped / w[..., None]
+    lo, hi = warped.min(axis=1), warped.max(axis=1)
+    out = np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1]], axis=-1)
+    out[:, 0::2] = out[:, 0::2].clip(0, out_hw[1])
+    out[:, 1::2] = out[:, 1::2].clip(0, out_hw[0])
+    return out
+
+
+def random_perspective(img: np.ndarray, targets=(), degrees=10, translate=0.1,
+                       scale=(0.5, 1.5), shear=10, perspective=0.0, border=(0, 0)):
+    """A random affine (or, with ``perspective``, perspective) warp of an
+    image and its [xyxy, cls] targets onto a grey-114 canvas grown by
+    ``2 * border`` (negative: the mosaic's crop back to the input size).
+    Boxes that degenerate under the warp are dropped (``warp_keep_mask``)."""
+    out_hw = (img.shape[0] + 2 * border[0], img.shape[1] + 2 * border[1])
+    matrix, zoom = _sample_warp_matrix(img.shape[:2], out_hw, degrees, translate, scale, shear)
+
+    if border != (0, 0) or not np.array_equal(matrix, np.eye(3)):
+        if perspective:
+            img = warp_perspective_u8(img, matrix, out_hw, border=114)
+        else:
+            img = warp_affine_u8(img, matrix[:2], out_hw, border=114)
+
+    if len(targets):
+        warped = _warp_boxes(targets[:, :4], matrix, out_hw, perspective)
+        keep = warp_keep_mask(targets[:, :4] * zoom, warped)
+        targets = targets[keep]
+        targets[:, :4] = warped[keep]
+    return img, targets
 
 
 def preproc(img: np.ndarray, input_size: Sequence[int]) -> Tuple[np.ndarray, float]:
@@ -61,15 +157,15 @@ def _mirror(image: np.ndarray, boxes: np.ndarray, mirror: bool = False):
 
 
 class TrainTransform:
-    """One frame: flag-driven mirror, letterbox, xyxy -> cxcywh (scaled by
-    the letterbox ratio), boxes with a side <= 1 px dropped, labels
-    ``(cls, cx, cy, w, h)`` zero-padded to ``max_labels``. If every box
-    degenerates, the un-augmented image and boxes are used instead."""
+    """One frame: HSV jitter (``hsv``), flag-driven mirror, letterbox,
+    xyxy -> cxcywh (scaled by the letterbox ratio), boxes with a side <= 1 px
+    dropped, labels ``(cls, cx, cy, w, h)`` zero-padded to ``max_labels``.
+    If every box degenerates, the un-augmented image and boxes are used
+    instead. The caller's image is not modified."""
 
     def __init__(self, max_labels: int = 50, hsv: bool = True, flip: bool = True):
-        if hsv:
-            raise NotImplementedError(HSV_MESSAGE)
         self.max_labels = max_labels
+        self.hsv = hsv
         self.flip = flip
 
     def __call__(self, image, targets, input_dim, mirror: bool = False):
@@ -84,8 +180,11 @@ class TrainTransform:
         labels_o = targets[:, 4].copy()
 
         image_t = image
+        if self.hsv:
+            image_t = image.copy()
+            augment_hsv(image_t)
         if self.flip:
-            image_t, boxes = _mirror(image, boxes, mirror=mirror)
+            image_t, boxes = _mirror(image_t, boxes, mirror=mirror)
         image_t, r_ = preproc(image_t, input_dim)
         boxes = xyxy2cxcywh(boxes)
         boxes *= r_

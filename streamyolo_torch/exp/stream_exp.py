@@ -172,16 +172,16 @@ class StreamExp(BaseExp):
     def get_data_loader(self, batch_size: int, is_distributed: bool = False,
                         no_aug: bool = False, cache_img: bool = False,
                         load_frame: Optional[Callable[[dict], np.ndarray]] = None):
-        """The train loader: the train split through the mosaic wrapper's
-        non-mosaic branch (shared-flip mirror, letterbox, 120 labels),
-        batches from ``InfiniteSampler`` seeded by ``seed`` (0 if unset).
+        """The train loader: the train split through the mosaic wrapper
+        (mosaic, and for STILL the mixup, unless ``no_aug``; then the
+        shared-flip mirror, letterbox, 120 labels), batches from
+        ``InfiniteSampler`` seeded by ``seed`` (0 if unset). ``cache_img``
+        reads the frames from the dataset's memmap (``--cache``).
         ``batch_size`` is the global batch: under a process group each rank
         loads ``batch_size // world`` (the division must be exact) from the
         sampler strided by its rank, as the JAX package does whatever
         ``is_distributed`` says. ``load_frame`` supplies the pixels as in
-        ``get_eval_loader``. The mosaic branch (``no_aug=False``) and
-        ``cache_img`` are not ported yet and raise."""
-        from streamyolo_torch.data.datasets import CACHE_MESSAGE
+        ``get_eval_loader``."""
         from streamyolo_torch.data.loader import (
             DataLoader,
             InfiniteSampler,
@@ -189,25 +189,17 @@ class StreamExp(BaseExp):
             _IndexUnpackDataset,
             worker_init_reset_seed,
         )
-        from streamyolo_torch.data.mosaic import (
-            MOSAIC_MESSAGE,
-            MosaicDetection,
-            StillMosaicDetection,
-        )
+        from streamyolo_torch.data.mosaic import MosaicDetection, StillMosaicDetection
         from streamyolo_torch.data.transforms import DoubleTrainTransform, TrainTransform
         from streamyolo_torch.parallel import get_rank, get_world_size, local_batch_size
 
-        if not no_aug:
-            raise NotImplementedError(MOSAIC_MESSAGE)
-        if cache_img:
-            raise NotImplementedError(CACHE_MESSAGE)
         double = self.dataset_name in ("one", "two")
         transform_cls = DoubleTrainTransform if double else TrainTransform
         dataset = self._dataset_cls()(
             data_dir=self.data_dir, json_file=self.train_ann, name="train",
             img_size=self.input_size,
             preproc=transform_cls(max_labels=50, hsv=False, flip=True),
-            load_frame=load_frame)
+            cache=cache_img, load_frame=load_frame)
         wrapper_cls = MosaicDetection if double else StillMosaicDetection
         dataset = wrapper_cls(
             dataset, mosaic=not no_aug, img_size=self.input_size,

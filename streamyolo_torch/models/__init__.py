@@ -1,7 +1,7 @@
-from streamyolo_torch.models.darknet import CSPDarknet
+from streamyolo_torch.models.darknet import CSPDarknet, Darknet
 from streamyolo_torch.models.dfp_pafpn import DFPPAFPN
 from streamyolo_torch.models.heads import PIPEHead, TALHead, YOLOXHead
 from streamyolo_torch.models.yolox import YOLOX, StreamYOLO, build_streamyolo, init_weights
 
-__all__ = ["CSPDarknet", "DFPPAFPN", "PIPEHead", "TALHead", "YOLOXHead",
+__all__ = ["CSPDarknet", "Darknet", "DFPPAFPN", "PIPEHead", "TALHead", "YOLOXHead",
            "YOLOX", "StreamYOLO", "build_streamyolo", "init_weights"]

@@ -1,10 +1,12 @@
-"""CSPDarknet backbone in PyTorch, the counterpart of
-``streamyolo_tpu/models/darknet.py::CSPDarknet`` (unpacked network only:
-the JAX package's phase-packed stages are a TPU layout with the same
-parameter tree).
+"""The backbones in PyTorch, the counterparts of
+``streamyolo_tpu/models/darknet.py``: ``CSPDarknet`` (unpacked network
+only: the JAX package's phase-packed stages are a TPU layout with the same
+parameter tree) and the legacy plain ``Darknet`` 21/53, which no shipped
+config uses.
 
 Stages are ``nn.Sequential``s so the state-dict names are the yolox ones
-(``dark2.0.conv.weight``).
+(``dark2.0.conv.weight``); ``Darknet``'s SPP tail is ``dark5_spp``, the
+name the JAX package's parameter tree gives it.
 """
 
 from __future__ import annotations
@@ -14,7 +16,14 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from streamyolo_torch.nn.blocks import BaseConv, CSPLayer, DWConv, Focus, SPPBottleneck
+from streamyolo_torch.nn.blocks import (
+    BaseConv,
+    CSPLayer,
+    DWConv,
+    Focus,
+    ResLayer,
+    SPPBottleneck,
+)
 
 
 class CSPDarknet(nn.Module):
@@ -54,4 +63,50 @@ class CSPDarknet(nn.Module):
         for name in ("dark2", "dark3", "dark4", "dark5"):
             x = getattr(self, name)(x)
             outputs[name] = x
+        return {k: v for k, v in outputs.items() if k in self.out_features}
+
+
+class Darknet(nn.Module):
+    """The legacy plain Darknet 21 / 53 with leaky-ReLU ``BaseConv``s: a
+    stride-1 stem conv, then five groups (a stride-2 conv and ``ResLayer``s:
+    1 in the stem, then ``DEPTH2BLOCKS[depth]``), the last followed by the
+    SPP tail (1x1, 3x3, ``SPPBottleneck``, 3x3, 1x1). Returns the dict of the
+    ``out_features`` maps."""
+
+    DEPTH2BLOCKS = {21: (1, 2, 2, 1), 53: (2, 8, 8, 4)}
+
+    def __init__(self, depth: int, in_channels: int = 3, stem_out_channels: int = 32,
+                 out_features: Sequence[str] = ("dark3", "dark4", "dark5")):
+        super().__init__()
+        if not out_features:
+            raise ValueError("please provide output features of Darknet")
+        self.out_features = tuple(out_features)
+        c = stem_out_channels
+        self.stem = nn.Sequential(BaseConv(in_channels, c, 3, 1, act="lrelu"),
+                                  *self._group(c, 1))
+        c *= 2
+        for name, n in zip(("dark2", "dark3", "dark4", "dark5"), self.DEPTH2BLOCKS[depth]):
+            setattr(self, name, nn.Sequential(*self._group(c, n)))
+            c *= 2  # the group's output width
+        self.dark5_spp = nn.Sequential(
+            BaseConv(c, c, 1, 1, act="lrelu"),
+            BaseConv(c, 2 * c, 3, 1, act="lrelu"),
+            SPPBottleneck(2 * c, c, activation="lrelu"),
+            BaseConv(c, 2 * c, 3, 1, act="lrelu"),
+            BaseConv(2 * c, c, 1, 1, act="lrelu"),
+        )
+
+    @staticmethod
+    def _group(in_channels: int, num_blocks: int):
+        return [BaseConv(in_channels, in_channels * 2, 3, 2, act="lrelu"),
+                *[ResLayer(in_channels * 2) for _ in range(num_blocks)]]
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        outputs = {}
+        x = self.stem(x)
+        outputs["stem"] = x
+        for name in ("dark2", "dark3", "dark4"):
+            x = getattr(self, name)(x)
+            outputs[name] = x
+        outputs["dark5"] = self.dark5_spp(self.dark5(x))
         return {k: v for k, v in outputs.items() if k in self.out_features}

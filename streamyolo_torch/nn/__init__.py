@@ -4,9 +4,10 @@ from streamyolo_torch.nn.blocks import (
     CSPLayer,
     DWConv,
     Focus,
+    ResLayer,
     SPPBottleneck,
     space_to_depth_focus,
 )
 
-__all__ = ["BaseConv", "Bottleneck", "CSPLayer", "DWConv", "Focus",
+__all__ = ["BaseConv", "Bottleneck", "CSPLayer", "DWConv", "Focus", "ResLayer",
            "SPPBottleneck", "space_to_depth_focus"]

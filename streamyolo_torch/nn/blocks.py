@@ -1,8 +1,8 @@
 """Canonical YOLOX-style conv blocks in PyTorch.
 
 Counterpart of ``streamyolo_tpu/nn/blocks.py``: ``BaseConv`` (conv + BN +
-SiLU), ``DWConv``, ``Bottleneck``, ``CSPLayer``, ``SPPBottleneck`` and
-``Focus``. Activations are NCHW inside the port (``channels_last`` memory
+SiLU), ``DWConv``, ``Bottleneck``, ``ResLayer``, ``CSPLayer``,
+``SPPBottleneck`` and ``Focus``. Activations are NCHW inside the port (``channels_last`` memory
 format on the card); attribute names follow the yolox ``state_dict``
 (``conv``/``bn``, ``m.0``...), the tree the JAX package's importer maps.
 
@@ -256,6 +256,20 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv2(self.conv1(x))
         return y + x if self.use_add else y
+
+
+class ResLayer(nn.Module):
+    """Residual 1x1 (half width) -> 3x3 block with leaky ReLU (the yolox
+    ``ResLayer`` of the legacy ``Darknet`` 21/53)."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        mid = in_channels // 2
+        self.layer1 = BaseConv(in_channels, mid, 1, 1, act="lrelu")
+        self.layer2 = BaseConv(mid, in_channels, 3, 1, act="lrelu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.layer2(self.layer1(x))
 
 
 class CSPLayer(nn.Module):

@@ -50,9 +50,9 @@ import numpy as np
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser("streamyolo_torch streaming sAP rehearsal")
     p.add_argument("--size", choices=["s", "m", "l"], default="l", help="StreamYOLO size")
-    p.add_argument("-f", "--exp_file", type=str, default=None,
-                   help="config (a port config name or a path into cfgs/); "
-                        "replaces --size")
+    p.add_argument("-f", "--exp_file", "--config", dest="exp_file", type=str, default=None,
+                   help="config (a port config name or a path into cfgs/); replaces "
+                        "--size; --config is the JAX tool's spelling")
     p.add_argument("--weights", "-c", type=str, default=None,
                    help=".pth or .safetensors state dict; omitted = random "
                         "weights from --seed (fine with --gt oracle)")

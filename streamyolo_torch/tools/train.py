@@ -27,8 +27,10 @@ world`` and the step computes what one process computes on the whole batch
 makes the others fail (the spawned workers are terminated; a collective
 with a dead peer raises), and a group that does not form raises.
 
-Not ported yet, and refused: the wandb logger, ``--cache``, and the mosaic
-branch (configs with ``no_aug_epochs < max_epoch``).
+Configs with ``no_aug_epochs < max_epoch`` train their first epochs on the
+mosaic branch (``data/mosaic.py``, no cv2); ``--cache`` keeps the resized
+frames in a memmap under ``data_dir``; ``-l wandb`` logs to Weights &
+Biases, a no-op without the ``wandb`` package.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ def make_parser():
     parser.add_argument("--fp16", dest="fp16", default=False, action="store_true",
                         help="bf16 autocast with float32 master weights")
     parser.add_argument("--cache", dest="cache", default=False, action="store_true",
-                        help="cache resized images in RAM (not ported yet)")
+                        help="cache resized images in a memmap under data_dir")
     parser.add_argument("-o", "--occupy", dest="occupy", default=False, action="store_true",
                         help="accepted for compatibility; changes nothing")
     parser.add_argument("-d", "--devices", default=None, type=int,
@@ -66,7 +68,7 @@ def make_parser():
                         help="the group's rendezvous, tcp://host:port (a free local port "
                              "by default on one host)")
     parser.add_argument("-l", "--logger", type=str, default="tensorboard",
-                        help="logger backend: tensorboard (wandb is not ported yet)")
+                        help="logger backend: tensorboard or wandb")
     parser.add_argument("--seed", default=None, type=int)
     parser.add_argument("--dedup", dest="dedup", default=False, action="store_true",
                         help="accepted for compatibility: the sequential-dedup per-epoch "

@@ -54,8 +54,6 @@ from streamyolo_torch.parallel import (
 from streamyolo_torch.utils.logger import get_logger, setup_logger
 from streamyolo_torch.utils.meters import MeterBuffer, device_mem_usage_mb
 
-WANDB_MESSAGE = "the wandb logger is not ported yet (ROADMAP queue A item 15)"
-
 
 class Trainer:
     def __init__(self, exp, args):
@@ -82,6 +80,7 @@ class Trainer:
         self.logger = get_logger()
         self.use_tal = exp.head_name == "tal"
         self.tb_writer = None
+        self.wandb_logger = None
         self.step_log: List[Tuple[Tuple[int, int], Optional[float], float]] = []
         self._pending: List[Any] = []
         self._last_metrics: Dict[str, Any] = {}
@@ -95,10 +94,9 @@ class Trainer:
         exp, args = self.exp, self.args
         self.logger.info(f"args: {args}")
         self.logger.info(f"exp value:\n{exp}")
-        if getattr(args, "logger", "tensorboard") not in ("tensorboard", "wandb"):
+        backend = getattr(args, "logger", "tensorboard")
+        if backend not in ("tensorboard", "wandb"):
             raise ValueError("logger must be either 'tensorboard' or 'wandb'")
-        if getattr(args, "logger", "tensorboard") == "wandb":
-            raise NotImplementedError(WANDB_MESSAGE)
         if self.fp16:
             exp.compute_dtype = "bfloat16"  # the eval model's modules
 
@@ -131,13 +129,17 @@ class Trainer:
         if self.world > 1:
             check_same_on_ranks(tensors_digest(self._state_tensors()),
                                 "the train state at the start")
-        if self.is_main:
+        if self.is_main and backend == "tensorboard":
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
                 self.tb_writer = SummaryWriter(self.file_name)
             except Exception:  # tensorboard is optional, as in the JAX trainer
                 self.tb_writer = None
+        elif self.is_main:
+            from streamyolo_torch.utils.wandb_logger import WandbLogger
+
+            self.wandb_logger = WandbLogger.initialize_wandb_logger(args, exp)
         self.logger.info("Training starts...")
 
     def _state_tensors(self) -> List[torch.Tensor]:
@@ -334,6 +336,9 @@ class Trainer:
             for k, v in loss_meter.items():
                 self.tb_writer.add_scalar(f"train/{k}", v.latest, step)
             self.tb_writer.add_scalar("train/lr", lr, step)
+        if self.wandb_logger is not None:
+            self.wandb_logger.log_metrics({k: v.latest for k, v in loss_meter.items()})
+            self.wandb_logger.log_metrics({"lr": lr})
 
     # ------------------------------------------------------------------ epoch end
 
@@ -364,6 +369,9 @@ class Trainer:
         if self.tb_writer is not None:
             self.tb_writer.add_scalar("val/COCOAP50", ap50, self.epoch + 1)
             self.tb_writer.add_scalar("val/COCOAP50_95", ap, self.epoch + 1)
+        if self.wandb_logger is not None:
+            self.wandb_logger.log_metrics({"val/COCOAP50": ap50, "val/COCOAP50_95": ap,
+                                           "train/epoch": self.epoch + 1})
         update_best_ckpt = ap > self.best_ap
         self.best_ap = max(self.best_ap, ap)
         self.save_ckpt("last_epoch", update_best_ckpt)
@@ -387,8 +395,12 @@ class Trainer:
         }
         self.logger.info(f"Save weights to {self.file_name} ({ckpt_name})")
         save_checkpoint(state, update_best_ckpt, self.file_name, ckpt_name)
+        if self.wandb_logger is not None:
+            self.wandb_logger.save_checkpoint(self.file_name, ckpt_name, update_best_ckpt)
 
     def after_train(self):
         self.logger.info(f"Training done, best AP: {self.best_ap * 100:.2f}")
         if self.tb_writer is not None:
             self.tb_writer.close()
+        if self.wandb_logger is not None:
+            self.wandb_logger.finish()

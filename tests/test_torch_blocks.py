@@ -3,6 +3,7 @@ variables (JAX init, BatchNorm statistics drawn from a seed), converted with
 the port's converter, the same numpy input. Tolerance: atol 1e-4 in fp32
 (convs sum in another order in the two frameworks).
 
+The legacy ``Darknet`` 21 / 53 and its ``ResLayer`` too.
 ``CSPLayer`` and ``CSPDarknet`` are held against JAX's packed default
 (``nn/packed.py`` layouts, the same parameter tree) as well as its raw path."""
 
@@ -14,8 +15,9 @@ import jax
 import jax.numpy as jnp
 
 from streamyolo_tpu.models.darknet import CSPDarknet as JCSPDarknet
+from streamyolo_tpu.models.darknet import Darknet as JDarknet
 from streamyolo_tpu.nn import blocks as jb
-from streamyolo_torch.models.darknet import CSPDarknet
+from streamyolo_torch.models.darknet import CSPDarknet, Darknet
 from streamyolo_torch.nn import blocks as tb
 
 from .torch_port_helpers import load_port, nhwc_to_nchw, randomize_bn
@@ -96,3 +98,18 @@ def test_cspdarknet(rng, packed):
     """Width 0.25 at 64x96: JAX's default packs the stem and all of dark2."""
     x = rng.standard_normal((1, 64, 96, 3), dtype=np.float32)
     run_parity(JCSPDarknet(0.33, 0.25, packed=packed), CSPDarknet(0.33, 0.25), x)
+
+
+def test_reslayer(rng):
+    x = rng.standard_normal((2, 9, 11, 16), dtype=np.float32)
+    run_parity(jb.ResLayer(16), tb.ResLayer(16), x)
+
+
+@pytest.mark.parametrize("depth", [21, 53])
+def test_legacy_darknet(rng, depth):
+    """The legacy plain Darknet at a narrow stem (8 channels, 256 at dark5),
+    every stage's output; the SPP tail is ``dark5_spp`` in both trees."""
+    x = rng.standard_normal((1, 64, 96, 3), dtype=np.float32)
+    outs = ("stem", "dark2", "dark3", "dark4", "dark5")
+    run_parity(JDarknet(depth, stem_out_channels=8, out_features=outs),
+               Darknet(depth, stem_out_channels=8, out_features=outs), x)

@@ -7,8 +7,7 @@ The fixture is ``tests/conftest.py::write_fake_argoverse`` with its flat
 frames replaced by seeded noise (JPEGs both stacks decode with cv2), raw
 60x96 frames at the test size 30x48: the 0.5 ratio of the shipped configs
 on 1200x1920 Argoverse-HD. Tolerances: image bytes, targets, ``img_info``,
-ids, shifts and COCO rows EQUAL; the letterbox bit-exact at r = 0.5 and
-within one grey level at another ratio.
+ids, shifts and COCO rows EQUAL; the letterbox bit-exact at every ratio.
 """
 
 import types
@@ -110,12 +109,13 @@ def test_imread_without_cv2_raises_clearly(monkeypatch, tmp_path):
     ((45, 64), (60, 96), False),     # upscale
 ])
 def test_letterbox_matches_jax(src, dst, exact):
+    """Bit for bit on cv2's 2x2-average path (``exact``) and on its general
+    fixed-point path alike."""
     img = np.random.RandomState(src[0] * dst[1]).randint(0, 256, (*src, 3), np.uint8)
     want, r_want = jtransforms.preproc(img, dst)
     got, r_got = ttransforms.preproc(img, dst)
     assert r_got == r_want and got.shape == want.shape and got.dtype == np.uint8
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() == 0 if exact else diff.max() <= 1
+    np.testing.assert_array_equal(got, want)
     h, w = int(src[0] * r_got), int(src[1] * r_got)
     assert (got[h:] == 114).all() and (got[:, w:] == 114).all()
 

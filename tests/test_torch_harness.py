@@ -6,8 +6,7 @@ COCOeval implementations, and the synthetic dataset.
 Tolerances: everything here is host arithmetic copied from the JAX package,
 so results are EQUAL (draws, timestamps, pairings, annotations), except
 COCOeval ``stats`` and ``precision`` (within 1e-12, as
-``tests/test_native.py`` holds the two JAX implementations) and the
-synthetic background (within 1 grey level of ``cv2.resize``).
+``tests/test_native.py`` holds the two JAX implementations).
 """
 
 import json
@@ -29,6 +28,7 @@ from streamyolo_tpu.stream import runtime_dist as jrd
 from streamyolo_torch import native
 from streamyolo_torch.data import coco as tcoco
 from streamyolo_torch.data import dbcode as tdbcode
+from streamyolo_torch.data.cv2_ops import resize_u8
 from streamyolo_torch.eval import cocoeval_ext
 from streamyolo_torch.eval.cocoeval import COCOeval
 from streamyolo_torch.eval.cocoeval_ext import COCOeval_opt, evaluator_class
@@ -304,9 +304,8 @@ def test_evaluator_falls_back_and_logs(monkeypatch, caplog):
 
 def test_synthetic_dataset_matches_jax(synthetic, tmp_path):
     """The port's generator draws in the JAX package's order: the
-    annotation files are equal, and the written frames decode as the JAX
-    package's JPEGs do up to the background's upscaling (1 grey level
-    before the JPEG coding)."""
+    annotation files are equal, and the frames are the background (upscaled
+    as ``cv2.resize`` upscales it) with the rectangles painted on."""
     root, path = synthetic
     tdbcode.make_synthetic_argoverse(str(tmp_path), seq_lens=(12, 9), size=(60, 96), seed=4)
     with open(path) as f, open(tmp_path / "Argoverse-HD" / "annotations" / "val.json") as g:
@@ -328,10 +327,13 @@ def test_synthetic_dataset_matches_jax(synthetic, tmp_path):
                                      ((120, 192), (1200, 1920)), ((7, 5), (13, 29)),
                                      ((40, 60), (20, 30))])
 def test_background_resize_within_one_grey_level_of_cv2(src, dst):
+    """The background's upscale equals ``cv2.resize`` bit for bit (it was
+    within one grey level before the resize matched cv2's unclamped
+    vertical taps; ``data/cv2_ops.py``)."""
     img = np.random.RandomState(sum(src)).randint(0, 256, (*src, 3), np.uint8)
-    got = tdbcode.resize_linear_u8(img, *dst).astype(int)
-    want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR).astype(int)
-    assert np.abs(got - want).max() <= 1
+    got = resize_u8(img, *dst)
+    want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pseudo_gt_and_img_folder_match_jax(synthetic):

@@ -1,8 +1,10 @@
-"""The port imports neither JAX nor the JAX package: a fresh interpreter in
-which ``import jax``, ``import flax`` and ``import streamyolo_tpu`` fail
-imports every module of ``streamyolo_torch`` (``parallel``, ``utils/aot.py``,
-``tools/precompile.py`` and ``tools/export_safetensors.py`` among them),
-``chip_smoke.py`` and the tests' fresh-process helper
+"""The port imports neither JAX nor the JAX package, nor cv2 (which the
+card's machine lacks): a fresh interpreter in which ``import jax``,
+``import flax``, ``import streamyolo_tpu`` and ``import cv2`` fail imports
+every module of ``streamyolo_torch`` (``parallel``, ``utils/aot.py``,
+``tools/precompile.py``, ``tools/export_safetensors.py``, the augmentation
+path's ``data/cv2_ops.py``, ``vis`` and ``tools/vis_results.py`` among
+them), ``chip_smoke.py`` and the tests' fresh-process helper
 ``tests/_torch_aot_child.py``."""
 
 import os
@@ -13,20 +15,23 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "streamyolo_tpu"):
+for name in ("jax", "flax", "streamyolo_tpu", "cv2"):
     sys.modules[name] = None  # any import of them raises ImportError
 import streamyolo_torch
 names = sorted(m.name for m in pkgutil.walk_packages(streamyolo_torch.__path__, "streamyolo_torch."))
 assert {"streamyolo_torch.parallel", "streamyolo_torch.parallel.multihost",
         "streamyolo_torch.utils.aot", "streamyolo_torch.tools.precompile",
-        "streamyolo_torch.tools.export_safetensors"} <= set(names), names
+        "streamyolo_torch.tools.export_safetensors", "streamyolo_torch.data.cv2_ops",
+        "streamyolo_torch.data.mosaic", "streamyolo_torch.vis",
+        "streamyolo_torch.tools.vis_results", "streamyolo_torch.tools.augment_check",
+        "streamyolo_torch.utils.wandb_logger", "streamyolo_torch.version"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 sys.path.insert(0, "tests")
 import _torch_aot_child
 leaked = sorted(n for n in sys.modules
-                if n.split(".")[0] in ("jax", "jaxlib", "flax", "streamyolo_tpu")
+                if n.split(".")[0] in ("jax", "jaxlib", "flax", "streamyolo_tpu", "cv2")
                 and sys.modules[n] is not None)
 assert not leaked, leaked
 print(len(names))

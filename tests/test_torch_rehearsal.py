@@ -174,6 +174,34 @@ def test_perfect_detector_tool_matches_jax(tmp_path):
     assert slow["sAP"] < fast["sAP"] and slow["sAP50"] < fast["sAP50"]
 
 
+def test_config_spelling_matches_jax(tmp_path):
+    """``--config`` is the JAX tool's spelling of ``-f`` / ``--exp_file``:
+    the three parse alike, and a perfect-detector run given ``--config``
+    writes the JAX tool's summary given the same line (the config's name
+    aside: the file's basename there, the ``Exp``'s name here)."""
+    cfg = os.path.join(REPO, "cfgs", "l_s50_onex_dfp_tal_filp.py")
+    spellings = [ttool.parse_args([flag, cfg, "--out-dir", "x"]).exp_file
+                 for flag in ("--config", "-f", "--exp_file")]
+    assert spellings == [cfg] * 3
+    import sap_rehearsal as jtool
+
+    common = ["--config", cfg, "--seqs", "1", "--frames", "10", "--perfect-detector",
+              "--latency-ms", "1.46"]
+    argv = sys.argv
+    try:
+        sys.argv = ["sap_rehearsal.py", "--out-dir", str(tmp_path / "jax"), "--size", "60", "96",
+                    *common]
+        jtool.main()
+    finally:
+        sys.argv = argv
+    got = ttool.main(["--out-dir", str(tmp_path / "port"), "--frame-size", "60", "96", *common])
+    with open(tmp_path / "jax" / "rehearsal_summary.json") as f:
+        want = json.load(f)
+    assert (got.pop("config"), want.pop("config")) == ("l_s50_onex_dfp_tal_filp",
+                                                       "l_s50_onex_dfp_tal_filp.py")
+    assert got == want
+
+
 @pytest.mark.parametrize("extra", [
     # CPU walls depend on the host's load: --perf-factor scales them far
     # below one frame period, so every frame is processed whatever they read

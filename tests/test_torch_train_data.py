@@ -1,7 +1,8 @@
 """The port's train-side data path against the JAX package, on the CPU: the
 train transforms, the mosaic wrappers' non-mosaic branch over the ONE, TWO
-and STILL datasets, the samplers, the whole train loader of the ``Exp``,
-the prefetcher's behaviour, and the refusals of what is not ported yet.
+and STILL datasets, the mosaic branch, the samplers, the whole train
+loader of the ``Exp`` (with and without the mosaic), the HSV jitter and
+the prefetcher's behaviour.
 
 Data: the textured ``write_fake_argoverse`` fixture (raw 60x96 frames read
 with cv2, letterboxed at r = 0.5 to 30x48), ``data_num_workers 0``, and the
@@ -26,7 +27,7 @@ from streamyolo_torch.data import datasets as tdatasets
 from streamyolo_torch.data import loader as tloader
 from streamyolo_torch.data import mosaic as tmosaic
 from streamyolo_torch.data import transforms as ttransforms
-from streamyolo_torch.data.dbcode import resize_linear_u8
+from streamyolo_torch.data.cv2_ops import resize_u8
 from streamyolo_torch.exp import get_exp
 
 from .conftest import FAKE_IMG_SIZE
@@ -177,15 +178,33 @@ def test_exp_train_loader_batches_equal_jax(root, kind):
         assert_items_equal(got, want)
 
 
+@pytest.mark.parametrize("kind", ["ONE", "STILL"])
+def test_exp_mosaic_loader_batches_equal_jax(root, kind):
+    """``get_data_loader(no_aug=False)`` (mosaic; STILL also the mixup) of
+    the same config and seed: the batches equal the JAX package's."""
+    opts = ["data_dir", root, "input_size", str(FAKE_IMG_SIZE), "data_num_workers", "0",
+            "seed", "5"]
+    jexp = j_get_exp(os.path.join(REPO, "cfgs", CFGS[kind] + ".py")).merge(opts)
+    texp = get_exp(exp_name=CFGS[kind]).merge(opts)
+    jl = jexp.get_data_loader(batch_size=3, no_aug=False)
+    tl = texp.get_data_loader(batch_size=3, no_aug=False)
+    assert tl.dataset.enable_mosaic and jexp.dataset.enable_mosaic
+    seed_all(1)
+    want = [b for _, b in zip(range(3), jl)]
+    seed_all(1)
+    got = [b for _, b in zip(range(3), tl)]
+    assert_items_equal(got, want)
+
+
 def test_resize_fast_path_equals_cv2():
-    """The exact-2x branch of ``resize_linear_u8`` is cv2's INTER_LINEAR."""
+    """The exact-2x branch of ``resize_u8`` is cv2's INTER_LINEAR."""
     import cv2
 
     rng = np.random.RandomState(2)
     for h, w in ((60, 96), (2, 2), (30, 48), (1200, 1920)):
         img = rng.randint(0, 256, (h, w, 3), np.uint8)
         want = cv2.resize(img, (w // 2, h // 2), interpolation=cv2.INTER_LINEAR)
-        assert np.array_equal(resize_linear_u8(img, h // 2, w // 2), want)
+        assert np.array_equal(resize_u8(img, h // 2, w // 2), want)
 
 
 # ---------------------------------------------------------------- the prefetcher
@@ -263,21 +282,37 @@ def test_prefetcher_wants_the_card_by_default():
 
 
 def test_unported_augmentations_raise(root):
-    with pytest.raises(NotImplementedError, match="augment_hsv"):
-        ttransforms.TrainTransform(hsv=True)
-    with pytest.raises(NotImplementedError, match="augment_hsv"):
-        ttransforms.DoubleTrainTransform()  # hsv defaults to True, as in JAX
-    _, tds = wrapped_pair(root, "ONE")
-    tds.enable_mosaic = True
-    with pytest.raises(NotImplementedError, match="mosaic"):
-        tds[0]
+    """What raised until the augmentation path was ported without cv2 now
+    runs, equal to the JAX package: the HSV jitter (``hsv=True``, the
+    default of both train transforms), the wrappers' mosaic branch, the
+    ``Exp`` loader with ``no_aug=False`` and ``--cache``."""
+    img = np.random.RandomState(4).randint(0, 256, (60, 96, 3), np.uint8)
+    targets = np.array([[10.0, 10.0, 40.0, 30.0, 2.0], [50.0, 5.0, 90.0, 50.0, 4.0]])
+    for mirror in (False, True):
+        outs = []
+        for tr in (ttransforms, jtransforms):
+            np.random.seed(6)
+            outs.append(tr.TrainTransform(hsv=True)(img.copy(), targets.copy(), (30, 48),
+                                                    mirror=mirror))
+        assert_items_equal(outs[0], outs[1])
+    seed_all(2)
+    want = jtransforms.DoubleTrainTransform()((img.copy(), img[::-1].copy()),
+                                              (targets, targets), (30, 48))
+    seed_all(2)
+    assert_items_equal(ttransforms.DoubleTrainTransform()((img, img[::-1]), (targets, targets),
+                                                          (30, 48)), want)
+    jds, tds = wrapped_pair(root, "ONE")
+    jds.enable_mosaic = tds.enable_mosaic = True
+    for i in range(3):
+        seed_all(i)
+        want = jds[i]
+        seed_all(i)
+        assert_items_equal(tds[i], want)
     exp = get_exp(exp_name=CFGS["ONE"]).merge(["data_dir", root, "data_num_workers", "0"])
-    with pytest.raises(NotImplementedError, match="mosaic"):
-        exp.get_data_loader(batch_size=2, no_aug=False)
-    with pytest.raises(NotImplementedError, match="--cache"):
-        exp.get_data_loader(batch_size=2, no_aug=True, cache_img=True)
-    with pytest.raises(NotImplementedError, match="--cache"):
-        tdatasets.ONE_ARGOVERSEDataset(root, "train.json", cache=True)
+    assert exp.get_data_loader(batch_size=2, no_aug=False).dataset.enable_mosaic
+    cached = tdatasets.ONE_ARGOVERSEDataset(root, "train.json", name="cache_check",
+                                            cache=True)
+    assert cached.imgs.shape == (8, 416, 416, 3)
     # the data-parallel loader is ported: with no process group it is one
     # process's (tests/test_torch_distributed.py runs it over two ranks)
     assert exp.get_data_loader(batch_size=2, is_distributed=True,

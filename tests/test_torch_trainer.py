@@ -292,12 +292,23 @@ def test_cli_trains_and_eval_reads_its_checkpoint(root, jax_init, tmp_path):
 
 
 def test_cli_refusals(root, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_cli(root, tmp_path, "-l", "wandb")
-    with pytest.raises(NotImplementedError, match="--cache"):
-        run_cli(root, tmp_path, "--cache")
-    with pytest.raises(NotImplementedError, match="mosaic"):
-        run_cli(root, tmp_path, max_epoch=3)  # no_aug_epochs 1 < max_epoch 3
+    """A JAX ``.pkl`` checkpoint is refused with a pointer to
+    ``export_safetensors``. What was refused until the augmentation path
+    and the wandb sink were ported trains: ``-l wandb`` (wandb absent: the
+    no-op sink), ``--cache`` and the mosaic branch (``no_aug_epochs`` 0 <
+    ``max_epoch`` 2: YOLOX closes the mosaic before epoch ``max_epoch -
+    no_aug_epochs``, 1-based, so ``no_aug_epochs`` 0 leaves epoch 1 on the
+    mosaic), with the last mosaic epoch's checkpoint written before epoch 2."""
+    data = tmp_path / "data"
+    shutil.copytree(root, data)  # the cache is written under data_dir
+    trainer = run_cli(str(data), tmp_path, "-l", "wandb", "--cache", max_epoch=2,
+                      no_aug_epochs=0, eval_interval=2)
+    assert trainer.wandb_logger is not None and trainer.tb_writer is None
+    assert trainer.state.step == 2 * trainer.iters_per_epoch and len(trainer.eval_history) == 1
+    assert np.isfinite(float(trainer._last_metrics["total_loss"]))
+    assert (data / "img_resized_cache_train.array").is_file()
+    assert torch.load(tmp_path / "run" / "last_mosaic_epoch_ckpt.pth")["start_epoch"] == 2
+    assert trainer.no_aug and not trainer.train_loader.dataset.enable_mosaic
     pkl = tmp_path / "latest_ckpt.pkl"
     pkl.write_bytes(b"never read")
     for args in (["-c", str(pkl)], ["--resume", "-c", str(pkl)]):
