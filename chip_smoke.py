@@ -42,10 +42,14 @@ host path, ``device_preproc``, int8 and 8 streams, then ``stream_det
 --aot-dir``), quantizes StreamYOLO-l to int8 (``streamyolo_torch/quant``:
 calibration, BN fold, the int8 conv kernel ``csrc/int8_conv.cu`` held bit
 for bit against its plain version at every conv shape of the step) and
-serves it, trains a tiny StreamYOLO with the port on the synthetic video and
-scores it offline (float and int8, each layer's int8 calibration range
-reported; the dedup eval's rows against the
-dual-frame eval's, box-matched), streaming under the wall clock, in
+serves it, serves StreamYOLO-l with each frame's rows sliced over 2 and 8
+shards on the card (``parallel/spatial.py``, ``CUDAStreamDetector(mesh=...)``;
+float64 rows and float32 predictions against the unsharded step, bf16 and
+int8 reported, the int8 kernel at shard shapes, times; across cards where
+there are two or more), trains a tiny StreamYOLO with the port on the
+synthetic video and scores it offline (float and int8, each layer's int8
+calibration range reported; the dedup eval's rows against the dual-frame
+eval's, box-matched), streaming under the wall clock, in
 simulation at the measured step and at 45 ms, and forecast. Last, it trains
 data-parallel (``streamyolo_torch/parallel``): a float32 step of StreamYOLO-l
 in two rank processes on the card over gloo against one process over the
@@ -58,12 +62,13 @@ launches on every path (from graphs: launches captured per graph x
 replays), and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
 no result. Imports nothing of JAX. ``--only train`` (or
-``trained_e2e``, ``aot_serve``, ``data_parallel``) runs the build and that
-phase alone.
+``trained_e2e``, ``aot_serve``, ``data_parallel``, ``spatial``) runs the
+build and that phase alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import itertools
@@ -147,6 +152,13 @@ INT8_HEAVIEST = 3  # shapes timed alone and also checked in float32
 # rounding boundary; the CPU tests measured 2.9e-6 relative on boxes and
 # 3e-7 on scores for the tiny model against the JAX package)
 INT8_BOX_REL, INT8_PROB_ABS = 1e-3, 1e-4
+# spatial: the row-sharded step (CUDAStreamDetector(mesh=...)) with every
+# shard on cuda:0, held against the unsharded step over a star and
+# SPATIAL_STEADY steady frames: at least SPATIAL_MATCHED_MIN of the unsharded
+# kept rows matched at IoU SPATIAL_IOU (within each class), score gap at most
+# SPATIAL_SCORE_GAP (float32, TF32 off); timed over SPATIAL_TIMED frames
+SPATIAL_N, SPATIAL_STEADY, SPATIAL_TIMED = (2, 8), 4, 20
+SPATIAL_IOU, SPATIAL_MATCHED_MIN, SPATIAL_SCORE_GAP = 0.99, 0.99, 1e-3
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
 NMS_OPS_PER_IOU = 14
 # per output pixel and channel: 3 adds, 1 mul, 1 add, floor, 2 clamps
@@ -323,6 +335,12 @@ def fp32_errors(got, want) -> dict:
     box = float(((got[..., :4] - want[..., :4]).abs() / (want[..., :4].abs() + 1.0)).max())
     prob = float((got[..., 4:] - want[..., 4:]).abs().max())
     return {"box_rel_err": box, "prob_abs_err": prob}
+
+
+def serving_pool() -> list:
+    """16 seeded 600x960 frames: the multi-stream, int8 and spatial phases'."""
+    return [np.random.RandomState(SEED + 1 + i).randint(0, 256, (*INPUT, 3), np.uint8)
+            for i in range(16)]
 
 
 def stream_batch(pool, t: int, n: int) -> np.ndarray:
@@ -845,6 +863,30 @@ def overfit_ratio(model, batch, fp16: bool) -> dict:
             "min": min(finite), "finite_steps": len(finite)}
 
 
+@contextlib.contextmanager
+def eval_loaders_in_process():
+    """Within: every ``StreamExp`` eval loader is built with no worker
+    processes (the val frames are in memory, and a spawn of loader workers
+    costs ~40 s on the card's host), while the train loader keeps its
+    ``data_num_workers``."""
+    from streamyolo_torch.exp.stream_exp import StreamExp
+
+    build = StreamExp.get_eval_loader
+
+    def in_process(self, *args, **kwargs):
+        workers, self.data_num_workers = self.data_num_workers, 0
+        try:
+            return build(self, *args, **kwargs)
+        finally:
+            self.data_num_workers = workers
+
+    StreamExp.get_eval_loader = in_process
+    try:
+        yield
+    finally:
+        StreamExp.get_eval_loader = build
+
+
 def phase_train(out_dir: Path) -> dict:
     """Training through ``streamyolo_torch.tools.train``'s entry, in process:
     StreamYOLO-l at full width (``l_s50_onex_dfp_tal_filp``), ``--fp16``
@@ -926,9 +968,10 @@ def phase_train(out_dir: Path) -> dict:
     downsample2x.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
-                               "-expn", "train", "-c", str(out_dir / "init.pth"), *train_opts],
-                              load_frame=load_frame)
+    with eval_loaders_in_process():
+        trainer = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
+                                   "-expn", "train", "-c", str(out_dir / "init.pth"),
+                                   *train_opts], load_frame=load_frame)
     torch.cuda.synchronize()
     train_wall_s = time.perf_counter() - t0
     launches = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
@@ -962,8 +1005,10 @@ def phase_train(out_dir: Path) -> dict:
           "train: cv2 was imported on the mosaic path")
 
     # --resume: step and epoch restored (max_epoch reached: no further step)
-    resumed = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
-                               "-expn", "train", "--resume", *train_opts], load_frame=load_frame)
+    with eval_loaders_in_process():
+        resumed = train_tool.main(["-f", cfg, "-b", str(TRAIN_BATCH), "--fp16", "-d", "1",
+                                   "-expn", "train", "--resume", *train_opts],
+                                  load_frame=load_frame)
     check(resumed.start_epoch == TRAIN_EPOCHS and resumed.state.step == steps
           and resumed.best_ap == trainer.best_ap,
           f"--resume restored epoch {resumed.start_epoch}, step {resumed.state.step}")
@@ -978,8 +1023,8 @@ def phase_train(out_dir: Path) -> dict:
     fwd = trainer.exp.get_dedup_forward_fn(trainer.eval_model, trainer.evaluator.dataset)
     (ap, _, _), rows_trainer = trainer.evaluator.evaluate(fwd, return_outputs=True)
     cli = eval_tool.main(["-f", cfg, "-c", str(run_dir / "latest_ckpt.pth"), "-b",
-                          str(TRAIN_BATCH), "--fp16", "-expn", "eval_ckpt", *data_opts],
-                         load_frame=load_frame)
+                          str(TRAIN_BATCH), "--fp16", "-expn", "eval_ckpt", *data_opts,
+                          "data_num_workers", "0"], load_frame=load_frame)
     # random weights: the eval-mode trunk normalises each frame by running
     # statistics of other frames, and a random trunk amplifies that
     # difference until some boxes' exp(w, h) may overflow; scores stay
@@ -2482,7 +2527,246 @@ def phase_int8(frames, bf16_steps: dict, floor: dict) -> dict:
          fp32_card_vs_cpu=card_vs_cpu, heaviest=per_layer, per_shape=per_shape,
          whole_step_convs=whole, floor_ms=floor)
     return {"launches": launches, "compared": compared, "heaviest": per_layer, "whole": whole,
-            "step": step}
+            "step": step, "q": q}
+
+
+def spatial_run(det, pool) -> list:
+    """A star and ``SPATIAL_STEADY`` steady frames of ``pool`` through
+    ``det``: their kept rows as ``det_rows``."""
+    det.reset()
+    rows = []
+    for i in range(1 + SPATIAL_STEADY):
+        det(pool[i % len(pool)], preprocessed=True)
+        check(np.isfinite(det.last_rows).all(), f"spatial: frame {i} rows not finite")
+        rows += det_rows(det.last_rows, i)
+    return rows
+
+
+def spatial_gap(rows, rows_ref) -> dict:
+    """``matched_rows`` at ``SPATIAL_IOU`` and the reference's matched share
+    (pairs match within a class: a matched row's label is equal)."""
+    gap = matched_rows(rows, rows_ref, SPATIAL_IOU)
+    gap["matched_share"] = gap["pairs"] / max(1, len(rows_ref))
+    # a box of zero area has no IoU with any box, its twin included
+    gap["zero_area_rows_ref"] = sum(r["bbox"][2] * r["bbox"][3] == 0 for r in rows_ref)
+    return gap
+
+
+def spatial_ok(gap: dict) -> bool:
+    return (gap["rows_ref"] > 0 and gap["matched_share"] >= SPATIAL_MATCHED_MIN
+            and gap["score_max_abs"] <= SPATIAL_SCORE_GAP)
+
+
+def spatial_preds(det, pool) -> dict:
+    """``fp32_errors`` of the sharded model's decoded predictions against
+    the unsharded model's, every anchor of a star and a steady frame."""
+    import torch
+
+    x0, x1 = (torch.from_numpy(f).cuda()[None].float() for f in pool[:2])
+    sp = det.spatial
+    with torch.inference_mode():
+        a0, buf = det.model(x0, mode="on_pipe")
+        a1, _ = det.model(x1, buffer=buf, mode="on_pipe")
+        b0, buf = sp(sp.sharding.shard(x0, dim=1))
+        b1, _ = sp(sp.sharding.shard(x1, dim=1), buffer=buf)
+    return {"star": fp32_errors(b0, a0), "steady": fp32_errors(b1, a1)}
+
+
+def spatial_times(det, pool, img) -> dict:
+    """Medians of ``SPATIAL_TIMED`` steady frames: CUDA events around
+    ``.step`` on a frame already on the card (device ms; eager, the span
+    holds the host's launches too) and the host clock around ``__call__``
+    on a host frame (wall ms, ending in the rows' D2H)."""
+    det.reset()
+    det.step(img)
+    device_ms = time_cuda(lambda: det.step(img), iters=SPATIAL_TIMED)
+    wall = []
+    for i in range(SPATIAL_TIMED):
+        t = time.perf_counter()
+        det(pool[i % len(pool)], preprocessed=True)
+        wall.append((time.perf_counter() - t) * 1e3)
+    return {"device_ms": device_ms, "wall_ms": statistics.median(wall)}
+
+
+def phase_spatial(pool, q: dict, smi: str) -> dict:
+    """The row-sharded latency mode (``parallel/spatial.py``,
+    ``CUDAStreamDetector(mesh=...)``): StreamYOLO-l at 600x960, the seeded
+    weights of ``EVAL_CONFIG`` with the prediction biases lifted, frames of
+    ``pool`` passed preprocessed (the host path; ``device_preproc`` is
+    refused with a mesh). Every shard on cuda:0: work division on one card,
+    which proves the halo exchange and the kernels at shard shapes, not a
+    gain in latency.
+
+    At n = 2 and 8, against the unsharded step:
+
+    * float32 (TF32 off), the counted path (n = 8): B1 once per frame, its
+      rows on the primary device, B2 never, the DFP buffer n slabs a level
+      on the card; the decoded predictions of every anchor of a star and a
+      steady frame within the stated float32 bound of phase
+      ``correctness`` (box 1e-3 relative to |box| + 1, probability 1e-4).
+      The kept rows' matched share is reported beside the unsharded step's
+      own share against itself with cuDNN off: the random trunk decodes
+      boxes of up to ~1e25 px, 2,640 candidates above conf overlap, and
+      float32 sum-order noise (~3e-4 relative, either way) flips NMS;
+    * float64: the kept rows held to the bound, at least
+      ``SPATIAL_MATCHED_MIN`` matched at IoU ``SPATIAL_IOU`` with equal
+      labels, scores within ``SPATIAL_SCORE_GAP``.
+
+    Then bf16 and the int8 model (``q``, served bf16) at n = 8, reported as
+    matched shares (ROADMAP §C.3): the int8 conv kernel launched at every
+    quantized conv call of the sharded step, at shard heights, and held bit
+    for bit against its plain version at the shard shape with the most MACs
+    that the unsharded step lacks. Times (bf16): device and wall ms at n =
+    1, 2, 8; with two or more cards, n = 2 and n = every card (at most 8)
+    again, one shard a card (the float64 bound, bf16 times)."""
+    import torch
+
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.nn.blocks import BaseConv
+    from streamyolo_torch.ops.int8_conv import int8_conv
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.parallel import make_spatial_mesh
+    from streamyolo_torch.stream import CUDAStreamDetector
+
+    t_phase = time.perf_counter()
+    kw = dict(input_size=INPUT, in_scale=0.5, conf_thre=CONF, nms_thre=NMS,
+              num_classes=NCLS, pre_nms_topk=TOPK)
+    exp = get_exp(exp_name=EVAL_CONFIG)
+    state = lifted_state(exp)
+    models = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64),
+                        ("bfloat16", torch.bfloat16)):
+        models[name] = exp.get_model("cuda", dtype=dtype)
+        models[name].load_state_dict(state, strict=True)
+    models["int8"] = exp.get_model("cuda", dtype=torch.bfloat16)
+    models["int8"].load_state_dict(q, strict=True)
+    del state
+
+    def detector(name, devices=None):
+        mesh = None if devices is None else make_spatial_mesh(devices)
+        return CUDAStreamDetector(models[name], use_bf16=name in ("bfloat16", "int8"),
+                                  mesh=mesh, **kw)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = detector("float32")
+    rows_ref = spatial_run(ref, pool)
+    with torch.backends.cudnn.flags(enabled=False):
+        control = spatial_gap(spatial_run(ref, pool), rows_ref)
+    del ref
+    rows64_ref = spatial_run(detector("float64"), pool)
+    fp32, preds32, fp64, launches = {}, {}, {}, {}
+    for n in SPATIAL_N:
+        det = detector("float32", ["cuda:0"] * n)
+        det.warmup(2)
+        torch.cuda.synchronize()
+        nms_keep.launches = 0
+        downsample2x.launches = 0
+        rows = spatial_run(det, pool)
+        torch.cuda.synchronize()
+        launches[n] = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+        check(launches[n] == {"nms": 1 + SPATIAL_STEADY, "preproc": 0},
+              f"spatial n={n}: launches {launches[n]} for {1 + SPATIAL_STEADY} frames")
+        check(all(p.is_cuda for level in det._buffer for p in level)
+              and [len(level) for level in det._buffer] == [n] * 3,
+              f"spatial n={n}: the DFP buffer is not {n} slabs a level on the card")
+        saved = nms_keep.launches
+        out = det.step(torch.from_numpy(pool[0])[None])
+        nms_keep.launches = saved
+        check(out.device == det.mesh.devices[0], f"spatial n={n}: rows on {out.device}")
+        fp32[n] = spatial_gap(rows, rows_ref)
+        preds32[n] = spatial_preds(det, pool)
+        del det
+        fp64[n] = spatial_gap(spatial_run(detector("float64", ["cuda:0"] * n), pool), rows64_ref)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # bf16 and int8 at n = 8: matched shares, reported
+    reported = {}
+    for name in ("bfloat16", "int8"):
+        ref_rows = spatial_run(detector(name), pool)
+        det = detector(name, ["cuda:0"] * SPATIAL_N[-1])
+        det.warmup(2)
+        if name == "int8":
+            shapes = []
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, args: shapes.append(
+                    (*args[0].shape, mod.kernel_q.shape[0], mod.kernel_q.shape[-1],
+                     mod.conv.stride[0], mod.conv.groups)))
+                for m in det.model.modules() if isinstance(m, BaseConv)]
+            int8_conv.launches = 0
+        rows = spatial_run(det, pool)
+        if name == "int8":
+            for h in hooks:
+                h.remove()
+            torch.cuda.synchronize()
+            launches["int8_conv"] = int8_conv.launches
+            check(int8_conv.launches == len(shapes) > 0,
+                  f"spatial int8: {int8_conv.launches} kernel launches for {len(shapes)} "
+                  "quantized conv calls")
+            plain = detector("int8")
+            plain.reset()
+            img = torch.from_numpy(pool[0]).cuda()[None]
+            plain.step(img)
+            unsharded = set(conv_calls(plain.model, img.to(torch.bfloat16), plain._buffer))
+            shard_only = sorted(set(shapes) - unsharded, key=lambda s: -conv_work(s, 2)[0])
+            check(bool(shard_only), "spatial int8: no conv call at a shard shape")
+            shard_shape = shard_only[0]
+            ops = int8_operands(shard_shape, torch.bfloat16, False, seed=11)
+            elems = int8_exact(*ops, shard_shape[6], shard_shape[7],
+                               f"the shard shape {shard_shape}")
+            del plain
+        reported[name] = spatial_gap(rows, ref_rows)
+        del det
+
+    # times, bf16: n = 1 (the plain detector), 2 and 8 on cuda:0
+    img = torch.from_numpy(pool[0]).cuda()[None]
+    times = {}
+    for n in (1, *SPATIAL_N):
+        det = detector("bfloat16", ["cuda:0"] * n)
+        det.warmup(2)
+        times[f"n{n}"] = spatial_times(det, pool, img)
+        del det
+
+    # across cards: n = 2 and n = every card (at most 8), each shard on its own
+    cards = torch.cuda.device_count()
+    across = {}
+    for n in sorted({2, min(cards, 8)}) if cards >= 2 else ():
+        devices = [f"cuda:{i}" for i in range(n)]
+        det = detector("float64", devices)
+        across[f"n{n}"] = {"float64": spatial_gap(spatial_run(det, pool), rows64_ref)}
+        det = detector("bfloat16", devices)
+        det.warmup(2)
+        across[f"n{n}"]["times_bf16"] = spatial_times(det, pool, img)
+        del det
+    del models
+    torch.cuda.empty_cache()
+    emit("spatial", model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), nvidia_smi=smi,
+         cards=cards, shards_on="cuda:0", frames=1 + SPATIAL_STEADY,
+         bound={"iou": SPATIAL_IOU, "matched_share_min": SPATIAL_MATCHED_MIN,
+                "score_gap_max": SPATIAL_SCORE_GAP, "dtype": "float64",
+                "float32_preds": {"box_rel_err": 1e-3, "prob_abs_err": 1e-4}},
+         float64={f"n{n}": g for n, g in fp64.items()},
+         float32_preds={f"n{n}": e for n, e in preds32.items()},
+         float32_rows_reported={**{f"n{n}": g for n, g in fp32.items()},
+                                "unsharded_cudnn_off": control},
+         launches=launches,
+         reported_n8={"bfloat16": reported["bfloat16"], "int8": reported["int8"]},
+         int8_shard_shape=list(shard_shape), int8_shard_shape_elements=elems,
+         int8_conv_calls_at_shard_shapes=sum(s not in unsharded for s in shapes),
+         times_bf16=times, across_cards=across or "not run: one card",
+         phase_s=time.perf_counter() - t_phase)
+    for n in SPATIAL_N:
+        check(spatial_ok(fp64[n]), f"spatial n={n}, float64, against the unsharded step: "
+                                   f"{fp64[n]}")
+        for frame, err in preds32[n].items():
+            check(err["box_rel_err"] < 1e-3 and err["prob_abs_err"] < 1e-4,
+                  f"spatial n={n}, float32 predictions ({frame}): {err}")
+    for n, run in across.items():
+        check(spatial_ok(run["float64"]), f"spatial {n} across cards: {run['float64']}")
+    return {"nms": launches[SPATIAL_N[-1]]["nms"], "preproc": launches[SPATIAL_N[-1]]["preproc"],
+            "int8_conv": launches["int8_conv"]}
 
 
 E2E_CONFIG = '''"""StreamYOLO-s at depth 0.33, width 0.25, 150x240: the tiny model that
@@ -2721,8 +3005,9 @@ def new_path_launches(kernel: str, cli: dict, streamer: dict, trained: dict) -> 
 
 def main(only: str = None) -> int:
     """The whole script; ``only`` (``"data_parallel"``, ``"aot_serve"``,
-    ``"train"`` or ``"trained_e2e"``) runs the device line, the build and
-    that phase alone (for work on it), and prints no result."""
+    ``"train"``, ``"trained_e2e"`` or ``"spatial"``, which calibrates its
+    int8 model first) runs the device line, the build and that phase alone
+    (for work on it), and prints no result."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2766,6 +3051,14 @@ def main(only: str = None) -> int:
         return 0
     if only == "trained_e2e":
         phase_trained_e2e(Path(__file__).resolve().parent / "build" / "chip_smoke_trained")
+        return 0
+    if only == "spatial":
+        from streamyolo_torch.exp import get_exp
+
+        pool = serving_pool()
+        q, m32, _ = int8_state(get_exp(exp_name=EVAL_CONFIG), pool)
+        del m32
+        phase_spatial(pool, q, smi)
         return 0
 
     # 3. B1 against its plain versions (fixed point on the card, sweep on the CPU)
@@ -2948,8 +3241,7 @@ def main(only: str = None) -> int:
     # 7. the N-camera batched step, its times, the sAP rehearsal and the
     # wall-clock streaming loop; each path's kernel launches are counted
     # from 0 just before it and read just after
-    pool = [np.random.RandomState(SEED + 1 + i).randint(0, 256, (*INPUT, 3), np.uint8)
-            for i in range(16)]
+    pool = serving_pool()
     multi = phase_multi_stream(model, m_gpu, pool, kw)
     del m_gpu
     phase_multi_stream_times(model, pool, kw)
@@ -2979,6 +3271,9 @@ def main(only: str = None) -> int:
     # 7d. the int8 PTQ serving path: calibrate, quantize, serve, the kernel
     # against its plain version at every conv shape of the step, times
     int8 = phase_int8(frames, steps, floor)
+
+    # 7e. the row-sharded latency mode: shards on cuda:0 against the unsharded step
+    spatial = phase_spatial(pool, int8.pop("q"), smi)
 
     # 8. the offline pseudo-streaming evaluation (B1 at K = 1000)
     offline = phase_offline_eval(Path(__file__).resolve().parent / "build" / "chip_smoke_eval",
@@ -3047,7 +3342,7 @@ def main(only: str = None) -> int:
     kernels = [
         {"name": "nms_keep (B1)", "route": "cuda", "source": "streamyolo_torch/csrc/nms.cu",
          "replaces": "streamyolo_tpu/ops/nms_pallas.py:26",
-         "launches": launches["nms"] + sum(graph_launches("nms").values()),
+         "launches": launches["nms"] + spatial["nms"] + sum(graph_launches("nms").values()),
          "max_abs_err": nms_err, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
@@ -3062,6 +3357,7 @@ def main(only: str = None) -> int:
                               "train": train["launches"]["nms"],
                               **new_path_launches("nms", cli, streamer, trained),
                               "data_parallel_eval": dp["launches"],
+                              "spatial_n8_float32": spatial["nms"],
                               "data_parallel_eval_by_rank": dp["launches_by_rank"],
                               **graph_launches("nms")},
          "graph_launches": graph_note,
@@ -3089,11 +3385,13 @@ def main(only: str = None) -> int:
                                   offline["launches"]["no_dedup"]["preproc"],
                               "train": train["launches"]["preproc"],
                               **new_path_launches("preproc", cli, streamer, trained),
+                              "spatial_n8_float32": spatial["preproc"],
                               **graph_launches("preproc")},
          "graph_launches": graph_note},
         {"name": "int8_conv", "route": "cuda", "source": "streamyolo_torch/csrc/int8_conv.cu",
          "replaces": "streamyolo_tpu/nn/blocks.py:123",
-         "launches": int8["launches"]["int8_conv"] + sum(graph_launches("int8_conv").values()),
+         "launches": int8["launches"]["int8_conv"] + spatial["int8_conv"]
+         + sum(graph_launches("int8_conv").values()),
          "max_abs_err": 0.0,
          "ms": int8["whole"]["ms"], "plain_ms": int8["whole"]["plain_ms"],
          "bound_ms": int8["whole"]["bound_ms"], "bound_by": int8["whole"]["bound_by"],
@@ -3110,6 +3408,7 @@ def main(only: str = None) -> int:
                               "int8_eval_no_dedup": trained["eval_int8_no_dedup"]["int8_conv"],
                               "int8_eval_calib_few":
                                   trained["eval_int8_calib_few"]["int8_conv"],
+                              "spatial_int8_n8": spatial["int8_conv"],
                               **graph_launches("int8_conv")},
          "graph_launches": graph_note},
     ]
@@ -3128,6 +3427,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
         sys.exit(aot_serve_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in (
-            "data_parallel", "aot_serve", "train", "trained_e2e"):
+            "data_parallel", "aot_serve", "train", "trained_e2e", "spatial"):
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

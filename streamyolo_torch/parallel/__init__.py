@@ -18,8 +18,13 @@ computes what one process computes on the whole global batch:
   * the rank gradients are summed (``multihost.all_reduce_grads``), and
     every rank ends the step with the same bits.
 
-With no process group, or a world of 1, nothing of this runs. The spatial
-row-sharded mode of ``streamyolo_tpu/parallel/spatial.py`` is not ported.
+With no process group, or a world of 1, nothing of this runs.
+
+The latency axis, one frame's rows sliced over the devices of one process
+(``SPATIAL_AXIS``, ``make_spatial_mesh``, ``row_sharding``), is
+``parallel/spatial.py``, served by ``CUDAStreamDetector(mesh=...)``. Those
+names load on first use: ``spatial.py`` imports the model modules, which
+import ``multihost`` from this package.
 """
 
 from __future__ import annotations
@@ -57,7 +62,19 @@ def shard_batch(batch: Dict[str, torch.Tensor], rank: int, world_size: int
     return out
 
 
+_SPATIAL = ("SPATIAL_AXIS", "make_spatial_mesh", "row_sharding")
+
+
+def __getattr__(name: str):
+    if name in _SPATIAL:
+        from streamyolo_torch.parallel import spatial
+
+        return getattr(spatial, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "SPATIAL_AXIS",
     "all_gather_objects",
     "all_reduce_grads",
     "all_reduce_sum_",
@@ -69,7 +86,9 @@ __all__ = [
     "init_distributed",
     "is_main_process",
     "local_batch_size",
+    "make_spatial_mesh",
     "psum_stats",
+    "row_sharding",
     "shard_batch",
     "synchronize",
     "tensors_digest",

@@ -6,7 +6,10 @@ Detectors:
   * ``CUDAStreamDetector`` (``TPUStreamDetector``), per frame: uint8 frame ->
     (optional 0.5x downsample on the device, kernel B2) -> cast -> backbone
     ONCE -> DFP fuse with the carried buffer -> head -> decode ->
-    fixed-shape NMS (kernel B1) -> one [K, 8] device-to-host copy;
+    fixed-shape NMS (kernel B1) -> one [K, 8] device-to-host copy; with
+    ``mesh`` (``parallel/spatial.py``, the JAX detector's spatial latency
+    mode) each frame's rows are sliced over the mesh's devices, the DFP
+    buffer stays sharded, and the decode and NMS run on the first device;
   * ``MultiStreamDetector``: N camera streams in one batched step (one H2D,
     one kernel-B1 launch of grid N, one [N, K, 8] D2H), with per-stream
     restarts through the model's ``star_mask``.
@@ -49,6 +52,7 @@ import torch
 
 from streamyolo_torch.ops.nms import postprocess_fixed
 from streamyolo_torch.ops.preproc import downsample2x
+from streamyolo_torch.parallel.spatial import SpatialStreamYOLO
 from streamyolo_torch.stream.clock import SimClock, WallClock
 from streamyolo_torch.stream.runtime_dist import Empirical
 from streamyolo_torch.utils.aot import (capture_graphs, environment, executable_key,
@@ -136,6 +140,29 @@ def _build_stream_step(model, *, num_classes, conf_thre, nms_thre, pre_nms_topk,
         if out is not None:
             rows = out.copy_(rows)
         return rows, _carry(buffer, cur)
+
+    return step
+
+
+def _build_spatial_step(spatial, *, num_classes, conf_thre, nms_thre, pre_nms_topk,
+                        compute_dtype):
+    """``_build_stream_step``'s eager step with the frame's rows sliced over
+    a mesh (``parallel/spatial.py::SpatialStreamYOLO``): ``step(image,
+    buffer, star)`` copies each device's rows of the [1, H, W, 3] uint8
+    frame to it, runs the sharded on_pipe model, computes the [1, K, 8] rows
+    on the primary device (kernel B1), and carries the sharded features (one
+    tuple of slabs per level) into ``buffer`` in place."""
+
+    def step(image, buffer, star: bool):
+        parts = [p.to(compute_dtype) for p in spatial.sharding.shard(image, dim=1)]
+        preds, cur = spatial(parts, buffer=None if star else buffer)
+        rows = postprocess_fixed(preds, num_classes=num_classes, conf_thre=conf_thre,
+                                 nms_thre=nms_thre, pre_nms_topk=pre_nms_topk)
+        if buffer is None:
+            return rows, cur
+        for level, c in zip(buffer, cur):
+            _carry(level, c)
+        return rows, buffer
 
     return step
 
@@ -345,7 +372,18 @@ class CUDAStreamDetector(_GraphServing):
     (module docstring); ``aot_loaded`` says whether it does, ``graphs``
     holds them. The graphs read the model's parameters in place: load new
     weights with ``load_state_dict`` (same tensors), never by moving the
-    model."""
+    model.
+
+    ``mesh`` (``parallel/spatial.py::make_spatial_mesh``), the latency
+    mode: with more than one device, each frame's rows are sliced over the
+    mesh (``SpatialStreamYOLO``), the model is replicated on each distinct
+    device (``load_state_dict`` on ``model`` reaches every copy), and the
+    DFP buffer stays sharded: each level one slab per mesh device, on it.
+    The decode and NMS (kernel B1) run on ``mesh.devices[0]``, which
+    replaces ``device``. As in the JAX package, the input H must divide by
+    the mesh size, ``device_preproc`` is refused, and the step runs eagerly
+    (``aot_dir`` is not read). With a one-device mesh the detector is the
+    plain one on that device."""
 
     def __init__(
         self,
@@ -360,7 +398,23 @@ class CUDAStreamDetector(_GraphServing):
         device_preproc: bool = False,
         device: Union[str, torch.device] = "cuda",
         aot_dir: Optional[str] = None,
+        mesh=None,
     ):
+        if mesh is not None:
+            device = mesh.devices[0]
+            if mesh.size > 1:
+                n = mesh.size
+                if device_preproc:
+                    raise ValueError(
+                        "device_preproc runs kernel B2 on the whole frame, which is not "
+                        "row-sharded; use the host preproc path with a spatial mesh")
+                if input_size[0] % n:
+                    raise ValueError(
+                        f"spatial mesh of {n} devices needs input H divisible by {n}, "
+                        f"got {input_size[0]}")
+            else:
+                mesh = None
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.input_size = tuple(input_size)
         self.in_scale = in_scale
@@ -373,13 +427,24 @@ class CUDAStreamDetector(_GraphServing):
         self.n_saturated = 0  # frames where the top-k candidate cap bit
         self.last_rows = None  # the latest frame's [K, 8] block, on the host
         self.model = _place(model, self.device, use_bf16)
-        self._step = _build_stream_step(
-            self.model, num_classes=num_classes, conf_thre=conf_thre, nms_thre=nms_thre,
-            pre_nms_topk=pre_nms_topk, compute_dtype=self.compute_dtype,
-            device_preproc=device_preproc)
         self._buffer = None
-        if aot_dir is not None:
-            self._serve_from(aot_dir)
+        if mesh is not None:
+            self.spatial = SpatialStreamYOLO(self.model, mesh)
+            self._step = _build_spatial_step(
+                self.spatial, num_classes=num_classes, conf_thre=conf_thre,
+                nms_thre=nms_thre, pre_nms_topk=pre_nms_topk,
+                compute_dtype=self.compute_dtype)
+            if aot_dir is not None:
+                get_logger().info(
+                    "spatial mesh of %d devices: serving eagerly, %s is not read",
+                    mesh.size, aot_dir)
+        else:
+            self._step = _build_stream_step(
+                self.model, num_classes=num_classes, conf_thre=conf_thre,
+                nms_thre=nms_thre, pre_nms_topk=pre_nms_topk,
+                compute_dtype=self.compute_dtype, device_preproc=device_preproc)
+            if aot_dir is not None:
+                self._serve_from(aot_dir)
 
     def _aot_config(self) -> dict:
         return dict(kind="stream_step", num_classes=self.num_classes,
@@ -447,8 +512,8 @@ class CUDAStreamDetector(_GraphServing):
         ``device_preproc``), on the host or ``self.device`` -> [1, K, 8]
         rows on the device. Updates the buffer. From graphs the rows are the
         static output tensor, overwritten by the next step."""
-        if self.graphs is None:
-            return self._eager_step(image.to(self.device))
+        if self.graphs is None:  # a spatial step copies each shard's rows itself
+            return self._eager_step(image if self.mesh is not None else image.to(self.device))
         static_image, buffer, out = self._static
         _check_shape(image, static_image)
         static_image.copy_(image)

@@ -1,8 +1,8 @@
 """The port imports neither JAX nor the JAX package, nor cv2 (which the
 card's machine lacks): a fresh interpreter in which ``import jax``,
 ``import flax``, ``import streamyolo_tpu`` and ``import cv2`` fail imports
-every module of ``streamyolo_torch`` (``parallel``, ``utils/aot.py``,
-``tools/precompile.py``, ``tools/export_safetensors.py``, the augmentation
+every module of ``streamyolo_torch`` (``parallel``, ``parallel/spatial.py``,
+``utils/aot.py``, ``tools/precompile.py``, ``tools/export_safetensors.py``, the augmentation
 path's ``data/cv2_ops.py``, ``vis`` and ``tools/vis_results.py`` among
 them), ``chip_smoke.py`` and the tests' fresh-process helper
 ``tests/_torch_aot_child.py``."""
@@ -20,6 +20,7 @@ for name in ("jax", "flax", "streamyolo_tpu", "cv2"):
 import streamyolo_torch
 names = sorted(m.name for m in pkgutil.walk_packages(streamyolo_torch.__path__, "streamyolo_torch."))
 assert {"streamyolo_torch.parallel", "streamyolo_torch.parallel.multihost",
+        "streamyolo_torch.parallel.spatial",
         "streamyolo_torch.utils.aot", "streamyolo_torch.tools.precompile",
         "streamyolo_torch.tools.export_safetensors", "streamyolo_torch.data.cv2_ops",
         "streamyolo_torch.data.mosaic", "streamyolo_torch.vis",
