@@ -9,7 +9,11 @@ its plain PyTorch version on the card (edge cases included), holds the bf16
 decode of the card against the CPU's, serves StreamYOLO-l at 600x960
 through ``CUDAStreamDetector`` (host path and ``device_preproc``) with
 random weights from a seed, checks the outputs (the card's fp32 step against
-the CPU, bf16 against fp32), and times the step and each kernel with CUDA
+the CPU, bf16 against fp32), reads frames from disk without cv2 (phase
+``image_io``: ``tests/torch_jpeg``'s JPEGs decoded and resized by the port's
+native code against cv2's digests, the host path against ``device_preproc``
+bit for bit, ``stream_det`` and ``offline_det`` reading the frames from
+disk), and times the step and each kernel with CUDA
 events, one call at a time and back to back. Then it serves 8 camera streams
 through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
 per-stream restart, fp32 rows against ``CUDAStreamDetector``), times the
@@ -62,8 +66,8 @@ launches on every path (from graphs: launches captured per graph x
 replays), and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
 no result. Imports nothing of JAX. ``--only train`` (or
-``trained_e2e``, ``aot_serve``, ``data_parallel``, ``spatial``) runs the
-build and that phase alone.
+``trained_e2e``, ``aot_serve``, ``data_parallel``, ``spatial``,
+``image_io``) runs the build and that phase alone.
 """
 
 from __future__ import annotations
@@ -159,6 +163,9 @@ INT8_BOX_REL, INT8_PROB_ABS = 1e-3, 1e-4
 # SPATIAL_SCORE_GAP (float32, TF32 off); timed over SPATIAL_TIMED frames
 SPATIAL_N, SPATIAL_STEADY, SPATIAL_TIMED = (2, 8), 4, 20
 SPATIAL_IOU, SPATIAL_MATCHED_MIN, SPATIAL_SCORE_GAP = 0.99, 0.99, 1e-3
+# image_io: the fixtures (cv2's digests beside them), host times' median count
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_jpeg"
+IMAGE_IO_TIMED, IMAGE_IO_SIZES = 20, ((600, 960), (601, 959))
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
 NMS_OPS_PER_IOU = 14
 # per output pixel and channel: 3 adds, 1 mul, 1 add, floor, 2 clamps
@@ -3003,10 +3010,186 @@ def new_path_launches(kernel: str, cli: dict, streamer: dict, trained: dict) -> 
     return out
 
 
+def host_ms(fn, iters: int = IMAGE_IO_TIMED) -> float:
+    """Median over ``iters`` calls of ``fn`` on the host clock (ms), after
+    one call that is not timed."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def image_digest(arr) -> dict:
+    """Shape and sha256 of an array's bytes, as ``tests/torch_jpeg/digests.json``
+    holds cv2's."""
+    import hashlib
+
+    arr = np.ascontiguousarray(arr)
+    return {"shape": list(arr.shape), "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
+    """Frames from disk on the card's host, which has no cv2
+    (``data/image_io.py`` over ``native/image_io.cpp``, ``resize_u8``):
+    every committed fixture of ``tests/torch_jpeg`` decodes, and each
+    1200x1920 frame resizes to 600x960 and 601x959, to the bytes whose
+    digests cv2 wrote there; the decode and resize times (median of
+    ``IMAGE_IO_TIMED``, the NumPy twin once); StreamYOLO-l at 600x960, bf16,
+    the seeded weights of ``EVAL_CONFIG``, over the three frames (a star and
+    two steady): ``CUDAStreamDetector``'s host path against
+    ``device_preproc`` rows bit for bit, ``MultiStreamDetector(3)`` fed the
+    raw frames against its feed of ``resize_u8_reference`` frames; then the
+    frames as one sequence from disk (``db_from_img_folder``) through
+    ``stream_det`` under the wall clock and with ``--infinite``, and
+    ``offline_det``, host path, no ``load_frame``. Kernel launches are
+    counted from 0 before each run and read after it. ``device="cpu"``
+    rehearses the phase without a card."""
+    import torch
+
+    from streamyolo_torch.data import db_from_img_folder
+    from streamyolo_torch.data.cv2_ops import resize_u8, resize_u8_reference
+    from streamyolo_torch.data.image_io import image_size, imdecode, imread
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import CUDAStreamDetector, MultiStreamDetector, add_to_runtime_zoo
+    from streamyolo_torch.tools import offline_det, stream_det
+
+    t_phase = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    digests = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    frames = {}
+    for rel, want in sorted(digests["decode"].items()):
+        img = imread(JPEG_FIXTURES / rel)
+        check(image_digest(img) == want, f"image_io: {rel} decodes to other bytes than cv2's")
+        check(list(image_size(JPEG_FIXTURES / rel)) == want["shape"][:2],
+              f"image_io: image_size of {rel} is not cv2's")
+        if rel in digests["resize"]:
+            frames[rel] = img
+            for key, d in digests["resize"][rel].items():
+                oh, ow = map(int, key.split("x"))
+                check(image_digest(resize_u8(img, oh, ow)) == d,
+                      f"image_io: resize of {rel} to {key} differs from cv2's")
+    raws = [frames[k] for k in sorted(frames)]
+    check(len(raws) == 3, f"image_io: {len(raws)} full-size frames in the fixtures")
+    first = sorted(frames)[0]
+    data = (JPEG_FIXTURES / first).read_bytes()
+    times = {"decode_ms": host_ms(lambda: imdecode(data)),
+             "imread_ms": host_ms(lambda: imread(JPEG_FIXTURES / first)),
+             **{f"resize_{h}x{w}_ms": host_ms(lambda: resize_u8(raws[0], h, w))
+                for h, w in IMAGE_IO_SIZES}}
+    t = time.perf_counter()
+    resize_u8_reference(raws[0], *INPUT)
+    times["reference_resize_600x960_ms"] = (time.perf_counter() - t) * 1e3
+
+    exp = get_exp(exp_name=EVAL_CONFIG)
+    exp.compute_dtype = "bfloat16"
+    state = lifted_state(exp)
+    model = exp.get_model(device)
+    model.load_state_dict(state)
+    kw = dict(input_size=INPUT, in_scale=0.5, conf_thre=CONF, nms_thre=NMS,
+              num_classes=NCLS, pre_nms_topk=TOPK, use_bf16=True, device=device)
+    launches, rows = {}, {}
+
+    def counted(name, fn):
+        nms_keep.launches = 0
+        downsample2x.launches = 0
+        out = fn()
+        launches[name] = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+        return out
+
+    def serve(det, feed, preprocessed=False):
+        det.reset()
+        out = []
+        for batch in feed:
+            det(batch, preprocessed=preprocessed)
+            out.append(det.last_rows.copy())
+        return out
+
+    host = CUDAStreamDetector(model, **kw)
+    devpre = CUDAStreamDetector(model, device_preproc=True, **kw)
+    multi_raw = MultiStreamDetector(model, len(raws), **kw)
+    multi_pre = MultiStreamDetector(model, len(raws), **kw)
+    for det in (host, devpre, multi_raw, multi_pre):
+        det.warmup(2)
+    batches = [[raws[(s + t) % len(raws)] for s in range(len(raws))] for t in range(len(raws))]
+    reference = [np.stack([resize_u8_reference(f, *INPUT) for f in b]) for b in batches]
+    rows["host"] = counted("host", lambda: serve(host, raws))
+    rows["device_preproc"] = counted("device_preproc", lambda: serve(devpre, raws))
+    rows["multi_stream_raw"] = counted("multi_stream_raw", lambda: serve(multi_raw, batches))
+    rows["multi_stream_preprocessed"] = counted(
+        "multi_stream_preprocessed", lambda: serve(multi_pre, reference, preprocessed=True))
+    n = len(raws)
+    k = n if device == "cuda" else 0  # a kernel's wrapper launches it only on a card
+    check(all(np.array_equal(a, b) for a, b in zip(rows["host"], rows["device_preproc"])),
+          "image_io: host-path rows differ from device_preproc rows")
+    check(all(np.array_equal(a, b) for a, b in zip(rows["multi_stream_raw"],
+                                                  rows["multi_stream_preprocessed"])),
+          "image_io: MultiStreamDetector on raw frames differs from its preprocessed feed")
+    check(launches == {"host": {"nms": k, "preproc": 0},
+                       "device_preproc": {"nms": k, "preproc": k},
+                       "multi_stream_raw": {"nms": k, "preproc": 0},
+                       "multi_stream_preprocessed": {"nms": k, "preproc": 0}},
+          f"image_io: kernel launches {launches} for {n} steps a detector")
+    kept = [int((r[..., 7] > 0.5).sum()) for r in rows["host"]]
+    times["host_path_wall_ms"] = host_ms(lambda: host(raws[1]))
+    times["device_preproc_wall_ms"] = host_ms(lambda: devpre(raws[1]))
+
+    annot = out_dir / "frames.json"
+    db = db_from_img_folder(str(JPEG_FIXTURES / "frames"), out_path=str(annot))
+    check([(i["name"], i["height"], i["width"]) for i in db["images"]]
+          == [(Path(k).name, *frames[k].shape[:2]) for k in sorted(frames)],
+          "image_io: db_from_img_folder does not list the frames at their sizes")
+    weights = out_dir / "l_seed0.pth"
+    torch.save(state, weights)
+    common = ["--data-root", str(JPEG_FIXTURES / "frames"), "--annot-path", str(annot),
+              "-f", f"cfgs/{EVAL_CONFIG}.py", "-c", str(weights), "--device", device]
+    cli_s = {}
+
+    def cli(name, tool, *extra):
+        t = time.perf_counter()
+        out = counted(name, lambda: tool.main(
+            [*common, "--out-dir", str(out_dir / name), *extra]))
+        cli_s[name] = time.perf_counter() - t
+        return out
+
+    cli("wall", stream_det, "--overwrite")
+    zoo = str(out_dir / "zoo.pkl")
+    add_to_runtime_zoo(str(out_dir / "wall" / "time_info.pkl"), zoo, "wall")
+    inf = cli("infinite", stream_det, "--sim-zoo", zoo, "--sim-name", "wall", "--infinite")
+    off = cli("offline_det", offline_det, "--no-eval")
+    wall = run_summary(out_dir / "wall", 1)
+    check(wall["processed"] >= 1 and launches["wall"]["preproc"] == 0,
+          f"image_io: stream_det from disk: {wall}, launches {launches['wall']}")
+    # --infinite calls the detector on every frame (a result that lands
+    # past the 3 frames' horizon is not recorded)
+    warm = stream_det.WARMUP_FRAMES if device == "cuda" else 0
+    check(len(inf["seq00"]["timestamps"]) >= 1
+          and launches["infinite"] == {"nms": warm + k, "preproc": 0},
+          f"image_io: stream_det --infinite from disk: launches {launches['infinite']}")
+    check({r["image_id"] for r in off["results_ccf"]} == set(range(n))
+          and launches["offline_det"] == {"nms": k, "preproc": 0},
+          f"image_io: offline_det from disk: launches {launches['offline_det']}")
+    cv2_loaded = sys.modules.get("cv2") is not None
+    check(not cv2_loaded, "image_io: cv2 was imported")
+    emit("image_io", fixtures=len(digests["decode"]), digests_equal=True,
+         frame="1200x1920 baseline 4:2:0 q90 (the JAX generator's)", times=times,
+         model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
+         host_rows_equal_device_preproc=True, multi_stream_raw_equal_preprocessed=True,
+         kept_rows=kept, stream_det_wall=wall,
+         infinite_results=len(inf["seq00"]["timestamps"]),
+         offline_detections=len(off["results_ccf"]), cli_s=cli_s, launches=launches,
+         cv2_loaded=cv2_loaded, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main(only: str = None) -> int:
     """The whole script; ``only`` (``"data_parallel"``, ``"aot_serve"``,
-    ``"train"``, ``"trained_e2e"`` or ``"spatial"``, which calibrates its
-    int8 model first) runs the device line, the build and that phase alone
+    ``"train"``, ``"trained_e2e"``, ``"image_io"`` or ``"spatial"``, which
+    calibrates its int8 model first) runs the device line, the build and that phase alone
     (for work on it), and prints no result."""
     import torch
 
@@ -3051,6 +3234,9 @@ def main(only: str = None) -> int:
         return 0
     if only == "trained_e2e":
         phase_trained_e2e(Path(__file__).resolve().parent / "build" / "chip_smoke_trained")
+        return 0
+    if only == "image_io":
+        phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io")
         return 0
     if only == "spatial":
         from streamyolo_torch.exp import get_exp
@@ -3220,6 +3406,10 @@ def main(only: str = None) -> int:
     torch.backends.cudnn.allow_tf32 = True
     del m_cpu
 
+    # 5c. frames from disk without cv2: the fixtures against cv2's digests,
+    # the host path against device_preproc, stream_det / offline_det from disk
+    image_io = phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io")
+
     # 6. times (CUDA events, median of >= 50 after warmup)
     img_host = torch.from_numpy(frames[0]).to(dev)[None]
     img_raw = torch.from_numpy(raws[0]).to(dev)[None]
@@ -3342,7 +3532,8 @@ def main(only: str = None) -> int:
     kernels = [
         {"name": "nms_keep (B1)", "route": "cuda", "source": "streamyolo_torch/csrc/nms.cu",
          "replaces": "streamyolo_tpu/ops/nms_pallas.py:26",
-         "launches": launches["nms"] + spatial["nms"] + sum(graph_launches("nms").values()),
+         "launches": launches["nms"] + spatial["nms"] + sum(graph_launches("nms").values())
+         + sum(c["nms"] for c in image_io.values()),
          "max_abs_err": nms_err, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
@@ -3358,6 +3549,7 @@ def main(only: str = None) -> int:
                               **new_path_launches("nms", cli, streamer, trained),
                               "data_parallel_eval": dp["launches"],
                               "spatial_n8_float32": spatial["nms"],
+                              **{f"image_io_{k}": c["nms"] for k, c in image_io.items()},
                               "data_parallel_eval_by_rank": dp["launches_by_rank"],
                               **graph_launches("nms")},
          "graph_launches": graph_note,
@@ -3370,7 +3562,8 @@ def main(only: str = None) -> int:
         {"name": "downsample2x (B2)", "route": "cuda",
          "source": "streamyolo_torch/csrc/preproc.cu",
          "replaces": "streamyolo_tpu/ops/preproc_pallas.py:33",
-         "launches": launches["preproc"] + sum(graph_launches("preproc").values()),
+         "launches": launches["preproc"] + sum(graph_launches("preproc").values())
+         + sum(c["preproc"] for c in image_io.values()),
          "max_abs_err": pre_err, "ms": b2_ms,
          "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": b2_lib_ms, "max_abs_diff_vs_plain": pre_err, "kernel_ms": b2_ms,
@@ -3386,6 +3579,7 @@ def main(only: str = None) -> int:
                               "train": train["launches"]["preproc"],
                               **new_path_launches("preproc", cli, streamer, trained),
                               "spatial_n8_float32": spatial["preproc"],
+                              **{f"image_io_{k}": c["preproc"] for k, c in image_io.items()},
                               **graph_launches("preproc")},
          "graph_launches": graph_note},
         {"name": "int8_conv", "route": "cuda", "source": "streamyolo_torch/csrc/int8_conv.cu",
@@ -3427,6 +3621,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
         sys.exit(aot_serve_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in (
-            "data_parallel", "aot_serve", "train", "trained_e2e", "spatial"):
+            "data_parallel", "aot_serve", "train", "trained_e2e", "spatial", "image_io"):
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -1,16 +1,19 @@
 """NumPy counterparts of the cv2 calls on the JAX package's training data
 path, equal to cv2 bit for bit, so that the port needs no cv2 to augment:
 
-  * ``resize_u8``: ``cv2.resize(img, (w, h), interpolation=INTER_LINEAR)``;
+  * ``resize_u8``: ``cv2.resize(img, (w, h), interpolation=INTER_LINEAR)``,
+    native (``native/image_io.cpp``); ``resize_u8_reference`` is its NumPy
+    twin, which the tests hold it against and no data or serving path
+    calls;
   * ``warp_affine_u8``: ``cv2.warpAffine(img, M, (w, h), borderValue=b)``;
   * ``warp_perspective_u8``: ``cv2.warpPerspective`` likewise;
   * ``bgr2hsv_u8`` / ``hsv2bgr_u8``: ``cv2.cvtColor`` with
     ``COLOR_BGR2HSV`` / ``COLOR_HSV2BGR`` on uint8.
 
-All take and return [H, W, 3] uint8 arrays and are vectorised (no loop over
-pixels). The arithmetic is cv2's own, as cv2 runs it on an x86-64 host with
-AVX2, including the places where its SIMD body and its scalar tail round
-differently:
+All take and return [H, W, 3] uint8 arrays; the NumPy ones are vectorised
+(no loop over pixels). The arithmetic is cv2's own, as cv2 runs it on an
+x86-64 host with AVX2, including the places where its SIMD body and its
+scalar tail round differently:
 
   * ``resize``: cv2's fixed-point path. The horizontal pass is exact in
     int32 with 11-bit coefficients (the x map is clamped at both borders);
@@ -46,6 +49,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from streamyolo_torch.native import load_image_io
 
 _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
 _WARP_BLOCK = 16  # output pixels per SIMD step of cv2's warp kernels (AVX2)
@@ -102,7 +107,23 @@ def _linear_taps(n_in: int, n_out: int, clamp: bool):
 
 def resize_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
-    for an [H, W, C] uint8 image. The same size returns ``img`` itself."""
+    for an [H, W, C] uint8 image, in native code (``resize_linear_u8`` of
+    ``native/image_io.cpp``, ``resize_u8_reference`` transcribed). The same
+    size returns ``img`` itself."""
+    h, w = img.shape[:2]
+    if (h, w) == (out_h, out_w):
+        return img
+    if img.dtype != np.uint8 or img.ndim != 3 or min(h, w, out_h, out_w) < 1:
+        raise ValueError(f"resize_u8 takes a non-empty [H, W, C] uint8 image and a size >= 1, "
+                         f"got {img.dtype} {img.shape} -> ({out_h}, {out_w})")
+    src = np.ascontiguousarray(img)
+    out = np.empty((out_h, out_w, img.shape[2]), np.uint8)
+    load_image_io().resize_linear_u8(src, h, w, img.shape[2], out, out_h, out_w)
+    return out
+
+
+def resize_u8_reference(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """``resize_u8`` in NumPy: the plain twin of the native resize."""
     h, w = img.shape[:2]
     if (h, w) == (out_h, out_w):
         return img

@@ -14,10 +14,11 @@ id ``len(ids)`` and so get EMPTY targets. Image ids are assumed consecutive
 from 0 and equal to the dataset index.
 
 Pixels come through ``load_frame(image_dict) -> BGR uint8``: by default
-``imread`` of ``<data_dir>/Argoverse-1.1/tracking/<seq_dir>/<name>`` (cv2,
-imported only there), or e.g. ``SyntheticArgoverse.frame`` for frames kept
-in memory. The annotation tuples hold the image dicts where the JAX package
-holds file names. ``input_dim`` is the mutable letterbox size of the
+``imread`` of ``<data_dir>/Argoverse-1.1/tracking/<seq_dir>/<name>``
+(``data/image_io.py``, the native JPEG decoder, equal to ``cv2.imread``; no
+cv2), or e.g. ``SyntheticArgoverse.frame`` for frames kept in memory. The
+annotation tuples hold the image dicts where the JAX package holds file
+names. ``input_dim`` is the mutable letterbox size of the
 transforms (the yolox ``Dataset.input_dim`` indirection); frames are read
 resized to ``img_size``.
 
@@ -38,20 +39,7 @@ import numpy as np
 
 from streamyolo_torch.data.coco import COCO
 from streamyolo_torch.data.cv2_ops import resize_u8
-
-
-def imread(path: str) -> np.ndarray:
-    """A BGR uint8 frame read with cv2; a clear ImportError without cv2."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            f"reading {path} needs cv2 (opencv-python), which is not installed; "
-            "pass a load_frame that supplies the frames instead") from e
-    frame = cv2.imread(path)
-    if frame is None:
-        raise OSError(f"cannot read {path}")
-    return frame
+from streamyolo_torch.data.image_io import imread
 
 
 class _ArgoverseBase:

@@ -12,7 +12,8 @@
     ``make_synthetic_argoverse`` writes it as JPEG frames plus annotation
     JSON, in the JAX package's layout.
 
-``cv2`` is imported only where a JPEG is written or read. The generator
+``cv2`` is imported only where a JPEG is written (``db_from_img_folder``
+takes each frame's size from its header, ``data/image_io.py``). The generator
 draws from its RNG in the JAX package's order, so the annotations are the
 same; the background is upscaled by ``data/cv2_ops.py::resize_u8``, equal
 to ``cv2.resize`` with ``INTER_LINEAR`` bit for bit, so the frames are the
@@ -29,6 +30,7 @@ import numpy as np
 
 from streamyolo_torch.data.argoverse_classes import ARGOVERSE_CLASSES, COCO_SUBSET
 from streamyolo_torch.data.cv2_ops import resize_u8
+from streamyolo_torch.data.image_io import image_size
 
 COCO_CLASSES = (
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
@@ -63,9 +65,9 @@ def db_from_img_folder(
     exts: Sequence[str] = (".jpg", ".jpeg", ".png"),
 ) -> dict:
     """A COCO-format dataset dict (no annotations) from a folder of sequence
-    subdirectories (or a flat folder = one sequence)."""
-    import cv2
-
+    subdirectories (or a flat folder = one sequence). Each frame's size is
+    read from its JPEG header (``image_size``: the size ``cv2.imread``
+    returns, Exif orientation included), without decoding it."""
     entries = sorted(os.listdir(img_dir))
     seq_names = [e for e in entries if os.path.isdir(os.path.join(img_dir, e))]
     if not seq_names:
@@ -83,10 +85,7 @@ def db_from_img_folder(
             f for f in os.listdir(seq_path) if f.lower().endswith(tuple(exts))
         )
         for fid, name in enumerate(frames):
-            img = cv2.imread(os.path.join(seq_path, name))
-            if img is None:
-                raise OSError(f"cannot read {os.path.join(seq_path, name)}")
-            h, w = img.shape[:2]
+            h, w = image_size(os.path.join(seq_path, name))
             images.append(
                 dict(id=img_id, width=w, height=h, name=name, sid=sid, fid=fid)
             )

@@ -12,8 +12,8 @@ then blends in a fifth, donor sample at half opacity (the CopyPaste mixup)
 with probability ``mixup_prob``. Otherwise the item is the wrapped
 dataset's ``pull_item`` through the train transform at ``input_dim``.
 
-Everything is host NumPy in the loader workers, with no cv2
-(``data/cv2_ops.py``), and equal to the JAX package's cv2 output bit for
+Everything runs on the host in the loader workers, with no cv2
+(``data/cv2_ops.py``: NumPy, the resize native), and equal to the JAX package's cv2 output bit for
 bit. The order of the ``random`` draws and the float32 box arithmetic are
 the JAX package's, which ``tests/golden/mosaic_golden.npz`` pins.
 """

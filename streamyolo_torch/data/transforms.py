@@ -6,8 +6,8 @@ flag-driven mirror, letterbox, cxcywh labels padded to ``max_labels``) and
 the val transforms.
 
 The card's machine has no cv2, so every pixel operation here is the port's
-NumPy counterpart of the cv2 call the JAX package makes
-(``data/cv2_ops.py``), equal to it bit for bit: the resize, the warps and
+counterpart of the cv2 call the JAX package makes (``data/cv2_ops.py``:
+NumPy, the resize native), equal to it bit for bit: the resize, the warps and
 the colour conversions. cv2 is never imported, even where it is installed.
 
 Random draws keep the JAX package's order, Python's ``random`` and NumPy's

@@ -221,7 +221,7 @@ class StreamExp(BaseExp):
                         load_frame: Optional[Callable[[dict], np.ndarray]] = None):
         """The val loader in dataset order (shuffle off). ``load_frame``
         (image dict -> BGR uint8) supplies the pixels; by default they are
-        read from ``data_dir`` with cv2. Under a process group of more than
+        read from ``data_dir`` by ``data/image_io.py::imread`` (no cv2). Under a process group of more than
         one rank the loader reads the rank's strided shard of the val set,
         as the JAX package's does whatever ``is_distributed`` says (its
         evaluator gathers the detections)."""

@@ -1,16 +1,22 @@
-"""ctypes binding of the host-side native library: the port's own binding of
-``native/streamyolo_native.cpp`` (the file the JAX package binds too).
+"""ctypes bindings of the port's host-side native libraries:
 
-The library is built with ``g++`` at first use, not at import, into
-``build/native/`` of the checkout, named by a hash of the source and the
-flags; a process-wide lock makes the build happen once, and the result is
-written to a temporary name and renamed, so parallel processes never load a
-half-written file. A failed build raises ``NativeBuildError`` with the
-compiler's output.
+  * ``native/streamyolo_native.cpp`` (the file the JAX package binds too):
+    ``cocoeval_run`` (the whole COCO evaluate + accumulate pass, for
+    ``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the
+    greedy track association of ``stream/track.py``) and ``bbox_iou_ltwh``;
+  * ``streamyolo_torch/native/image_io.cpp``: ``jpeg_header`` /
+    ``jpeg_decode`` (baseline JPEG, bit-exact with ``cv2.imread``) and
+    ``resize_linear_u8`` (``cv2.resize`` with ``INTER_LINEAR``), for
+    ``data/image_io.py`` and ``data/cv2_ops.py``.
 
-Bound here: ``cocoeval_run`` (the whole COCO evaluate + accumulate pass, for
-``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the greedy
-track association of ``stream/track.py``) and ``bbox_iou_ltwh``.
+Each library is built with ``g++`` at first use, not at import, into
+``build/native/`` of the checkout, named by a hash of its source and flags;
+a process-wide lock makes each build happen once in a process, and the
+result is written to a temporary name and renamed, so parallel processes
+(test workers, spawned loader workers) never load a half-written file and
+later ones load the finished one. A missing ``g++`` or a failed build
+raises ``NativeBuildError`` with the compiler's output; nothing stands in
+for a library that does not build.
 """
 
 from __future__ import annotations
@@ -27,35 +33,54 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "native" / "streamyolo_native.cpp"
+IMAGE_IO_SOURCE = Path(__file__).resolve().parent / "image_io.cpp"
 BUILD_DIR = ROOT / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+# the resize's float map must round as NumPy's does (no fused multiply-add);
+# corrupt JPEG coefficients wrap rather than overflow into undefined behaviour
+IMAGE_IO_FLAGS = CXX_FLAGS + ("-ffp-contract=off", "-fwrapv")
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 class NativeBuildError(RuntimeError):
-    """``g++`` is missing or failed on ``native/streamyolo_native.cpp``."""
+    """``g++`` is missing or failed on a native source."""
 
 
-def _target() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"streamyolo_native-{digest.hexdigest()[:16]}.so"
+def _target(source: Path = SOURCE, flags=CXX_FLAGS) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> None:
+def _build(source: Path, flags, out: Path) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise NativeBuildError("g++ not found: cannot build native/streamyolo_native.cpp")
+        raise NativeBuildError(f"g++ not found: cannot build {source.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+    proc = subprocess.run([cxx, *flags, str(source), "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise NativeBuildError(
-            f"g++ failed on {SOURCE.name} (exit {proc.returncode}):\n{proc.stderr}")
+            f"g++ failed on {source.name} (exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+
+
+def _load(source: Path, flags, declare) -> ctypes.CDLL:
+    """``source`` built with ``flags`` (once), loaded, its signatures set by
+    ``declare(lib)``."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            path = _target(source, flags)
+            if not path.exists():
+                _build(source, flags, path)
+            lib = ctypes.CDLL(str(path))
+            declare(lib)
+            _libs[source] = lib
+        return lib
 
 
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -63,40 +88,59 @@ _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
+def _declare_native(lib: ctypes.CDLL) -> None:
+    lib.cocoeval_run.argtypes = [
+        ctypes.c_int64, ctypes.c_int64,
+        _i64p, _i64p,
+        _f64p, _f64p, _f64p,        # dt: scores, boxes, areas
+        _f64p, _f64p, _u8p, _u8p,   # gt: boxes, areas, crowd, ignore
+        _f64p, ctypes.c_int64,      # iou_thrs, T
+        _f64p, ctypes.c_int64,      # rec_thrs, R
+        _f64p, ctypes.c_int64,      # area_rng, A
+        _i64p, ctypes.c_int64,      # max_dets, M
+        _f64p, _f64p, _f64p,        # precision, recall, scores
+    ]
+    lib.cocoeval_run.restype = None
+    lib.iou_assoc_greedy.argtypes = [
+        _f64p, ctypes.c_int64, ctypes.c_int64,
+        _i64p, _i64p, ctypes.c_double,
+        _i64p, _i64p, _i64p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.iou_assoc_greedy.restype = None
+    lib.bbox_iou_ltwh.argtypes = [
+        _f64p, ctypes.c_int64, _f64p, ctypes.c_int64, _u8p, _f64p,
+    ]
+    lib.bbox_iou_ltwh.restype = None
+
+
+def _declare_image_io(lib: ctypes.CDLL) -> None:
+    lib.jpeg_header.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, _i64p,  # data, size, info[3]
+        ctypes.c_char_p, ctypes.c_int64,         # error message buffer
+    ]
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, _u8p,   # data, size, out [h, w, 3]
+        ctypes.c_int64, ctypes.c_int64,          # h, w
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.resize_linear_u8.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # src, h, w, c
+        _u8p, ctypes.c_int64, ctypes.c_int64,                  # dst, out_h, out_w
+    ]
+    lib.resize_linear_u8.restype = None
+
+
 def load() -> ctypes.CDLL:
-    """The loaded native library, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = _target()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
-            lib.cocoeval_run.argtypes = [
-                ctypes.c_int64, ctypes.c_int64,
-                _i64p, _i64p,
-                _f64p, _f64p, _f64p,        # dt: scores, boxes, areas
-                _f64p, _f64p, _u8p, _u8p,   # gt: boxes, areas, crowd, ignore
-                _f64p, ctypes.c_int64,      # iou_thrs, T
-                _f64p, ctypes.c_int64,      # rec_thrs, R
-                _f64p, ctypes.c_int64,      # area_rng, A
-                _i64p, ctypes.c_int64,      # max_dets, M
-                _f64p, _f64p, _f64p,        # precision, recall, scores
-            ]
-            lib.cocoeval_run.restype = None
-            lib.iou_assoc_greedy.argtypes = [
-                _f64p, ctypes.c_int64, ctypes.c_int64,
-                _i64p, _i64p, ctypes.c_double,
-                _i64p, _i64p, _i64p,
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ]
-            lib.iou_assoc_greedy.restype = None
-            lib.bbox_iou_ltwh.argtypes = [
-                _f64p, ctypes.c_int64, _f64p, ctypes.c_int64, _u8p, _f64p,
-            ]
-            lib.bbox_iou_ltwh.restype = None
-            _lib = lib
-        return _lib
+    """The loaded ``native/streamyolo_native.cpp`` library, built on first use."""
+    return _load(SOURCE, CXX_FLAGS, _declare_native)
+
+
+def load_image_io() -> ctypes.CDLL:
+    """The loaded ``image_io.cpp`` library, built on first use."""
+    return _load(IMAGE_IO_SOURCE, IMAGE_IO_FLAGS, _declare_image_io)
 
 
 def cocoeval_run_cpp(

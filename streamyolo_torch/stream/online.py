@@ -50,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from streamyolo_torch.data.cv2_ops import resize_u8
 from streamyolo_torch.ops.nms import postprocess_fixed
 from streamyolo_torch.ops.preproc import downsample2x
 from streamyolo_torch.parallel.spatial import SpatialStreamYOLO
@@ -99,15 +100,6 @@ def _parse(rows: np.ndarray, in_scale: float):
     kept = rows[rows[:, 7] > 0.5]
     return (kept[:, :4] / in_scale, kept[:, 4] * kept[:, 5],
             kept[:, 6].astype(np.int32), None)
-
-
-def _host_resize(frame_bgr: np.ndarray, input_size: Tuple[int, int]) -> np.ndarray:
-    """Plain resize to the streaming input size (the online path does not
-    letterbox); stays uint8, the cast happens on the device."""
-    import cv2
-
-    return cv2.resize(frame_bgr, (input_size[1], input_size[0]),
-                      interpolation=cv2.INTER_LINEAR)
 
 
 def _saturated(rows: np.ndarray, conf_thre: float) -> bool:
@@ -490,8 +482,10 @@ class CUDAStreamDetector(_GraphServing):
 
     def preproc(self, frame_bgr: np.ndarray) -> np.ndarray:
         """Plain resize to the streaming input size (the online path does not
-        letterbox); stays uint8, the cast happens on the device. With
-        ``device_preproc`` the raw frame must be exactly 2x the input size."""
+        letterbox): ``cv2.resize`` with ``INTER_LINEAR`` bit for bit, in
+        native code (``data/cv2_ops.py::resize_u8``); stays uint8, the cast
+        happens on the device. With ``device_preproc`` the raw frame must
+        be exactly 2x the input size."""
         if self.device_preproc:
             want = (2 * self.input_size[0], 2 * self.input_size[1])
             if frame_bgr.shape[:2] != want:
@@ -500,7 +494,7 @@ class CUDAStreamDetector(_GraphServing):
                     f"(2x the input size), got {frame_bgr.shape[:2]} — use "
                     "device_preproc=False for other source resolutions")
             return frame_bgr
-        return _host_resize(frame_bgr, self.input_size)
+        return resize_u8(frame_bgr, *self.input_size)
 
     def _eager_step(self, image: torch.Tensor) -> torch.Tensor:
         dets, self._buffer = self._step(image, self._buffer, self._buffer is None)
@@ -688,7 +682,7 @@ class MultiStreamDetector(_GraphServing):
 
     def preproc(self, frame_bgr: np.ndarray) -> np.ndarray:
         """Per-stream host resize (``CUDAStreamDetector``'s host path)."""
-        return _host_resize(frame_bgr, self.input_size)
+        return resize_u8(frame_bgr, *self.input_size)
 
     def _eager_step(self, images: torch.Tensor) -> torch.Tensor:
         star_mask = None
@@ -877,8 +871,9 @@ def print_stats(arr, name: str = "", fmt: str = "{:.4g}", cvt=lambda x: x):
 
 def imread_loader(db, data_root: str) -> Callable[[dict], np.ndarray]:
     """``load_frame`` for an Argoverse-HD layout: reads
-    ``data_root/<seq_dir>/<name>`` of an image dict with cv2 (a clear
-    ImportError at the first read where cv2 is absent)."""
+    ``data_root/<seq_dir>/<name>`` of an image dict with
+    ``data/image_io.py::imread`` (the native JPEG decoder, equal to
+    ``cv2.imread``; no cv2)."""
     from streamyolo_torch.data.datasets import imread
 
     seq_dirs = db.dataset["seq_dirs"]

@@ -22,11 +22,13 @@ shape-tolerant (missing or mismatched entries keep their init values); a
 JAX ``.pkl`` is refused with a pointer to ``tools/export_safetensors.py``.
 The modules are bf16 unless ``--fp32``. ``--device-preproc`` downsamples
 the raw frame on the card (kernel B2; raw frames must be exactly twice the
-input size) instead of resizing on the host with cv2. ``--aot-dir DIR``
+input size) instead of resizing on the host (``data/cv2_ops.py::resize_u8``,
+native, equal to ``cv2.resize``). ``--aot-dir DIR``
 serves from the captured graphs that ``precompile --serve DIR`` wrote for
 this configuration (``stream/online.py``; eager, with a warning, on a key
-miss). Frames are read with cv2 from ``--data-root``, or taken from
-``main(load_frame=...)``. Runs on ``cuda`` unless ``--device cpu``.
+miss). Frames are read from ``--data-root`` by the port's JPEG decoder
+(``data/image_io.py``, equal to ``cv2.imread``; no cv2 needed), or taken
+from ``main(load_frame=...)``. Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ of ``tools/vis_results.py``: per-frame overlays of a CCF results pkl
 ``--contrast B.pkl`` renders a second experiment's detections on the same
 frames and composes the two panes split-screen (A before the divider, B
 after), with ``--split-pos``, ``--horizontal`` and the ``--split-animation
-swing`` divider sweep. Reading and writing the frames needs cv2.
+swing`` divider sweep. Frames are read with the port's decoder
+(``data/image_io.py``); drawing and writing them needs cv2.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ def main(argv: Optional[Sequence[str]] = None):
     import cv2
 
     from streamyolo_torch.data.coco import COCO
+    from streamyolo_torch.data.image_io import imread
     from streamyolo_torch.vis import (
         contrast_composite,
         html_all_sequences,
@@ -88,8 +90,7 @@ def main(argv: Optional[Sequence[str]] = None):
     seq_frames = defaultdict(list)
     for img in db.dataset["images"]:
         path = os.path.join(args.data_root, seq_dirs[img["sid"]], img["name"])
-        frame = cv2.imread(path)
-        assert frame is not None, path
+        frame = imread(path)
         canvas = _render(frame, by_img.get(img["id"], []), class_names,
                          args.score_th, args.vis_scale, vis_det)
         if by_img_b is not None:

@@ -4,10 +4,13 @@ split-screen comparisons (``vis_contrast``, ``contrast_composite`` with the
 ``split_anime_swing`` divider), frames to video (``make_video``) and HTML
 galleries.
 
-Drawing, image files and video need cv2, which is imported inside the
-functions that use it: the module imports on a host without cv2 (the
+Drawing, writing image files and video need cv2, which is imported inside
+the functions that use it: the module imports on a host without cv2 (the
 card's machine), where the pure-NumPy parts (``vis_contrast``,
-``contrast_composite``, the easing and the galleries) work.
+``contrast_composite``, the easing and the galleries) work. Frames are read
+with ``data/image_io.py::imread`` and rescaled with
+``data/cv2_ops.py::resize_u8`` (``cv2.imread`` and ``cv2.resize`` bit for
+bit, no cv2).
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import random
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from streamyolo_torch.data.cv2_ops import resize_u8
+from streamyolo_torch.data.image_io import imread
 
 # deterministic per-class palette
 _PALETTE = [
@@ -55,8 +61,11 @@ def draw_detections(
         cv2.putText(canvas, text, (x1, max(y1 - 4, 10)),
                     cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1, cv2.LINE_AA)
     if out_scale != 1.0:
-        canvas = cv2.resize(canvas, None, fx=out_scale, fy=out_scale,
-                            interpolation=cv2.INTER_LINEAR)
+        # cv2's size for fx = fy = out_scale; the map's scale is the sizes'
+        # ratio (cv2's fx path takes out_scale itself: equal where the scaled
+        # sizes are whole numbers)
+        h, w = canvas.shape[:2]
+        canvas = resize_u8(canvas, round(h * out_scale), round(w * out_scale))
     return canvas
 
 
@@ -184,18 +193,13 @@ def make_video(
     import cv2
 
     assert frame_paths, "no frames"
-    first = cv2.imread(frame_paths[0])
-    assert first is not None, frame_paths[0]
-    h, w = first.shape[:2]
+    h, w = imread(frame_paths[0]).shape[:2]
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     writer = cv2.VideoWriter(
         out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h)
     )
     for i, p in enumerate(frame_paths):
-        frame = cv2.imread(p)
-        assert frame is not None, p
-        if frame.shape[:2] != (h, w):
-            frame = cv2.resize(frame, (w, h))
+        frame = resize_u8(imread(p), h, w)
         if numbered:
             cv2.putText(frame, str(i), (10, 30), cv2.FONT_HERSHEY_SIMPLEX,
                         1.0, (0, 255, 255), 2, cv2.LINE_AA)

@@ -4,7 +4,8 @@ on the CPU:
   * the mosaic / mixup wrappers over the golden fixture of
     ``tests/test_mosaic_golden.py`` equal ``tests/golden/mosaic_golden.npz``
     bit for bit;
-  * ``data/cv2_ops.py`` equals cv2 exactly: ``resize_u8`` up and down,
+  * ``data/cv2_ops.py`` equals cv2 exactly: ``resize_u8`` (native) and its
+    NumPy twin ``resize_u8_reference`` up and down,
     ``warp_affine_u8`` and ``warp_perspective_u8`` on matrices of
     ``_sample_warp_matrix`` (hypothesis cases at small sizes), and
     ``bgr2hsv_u8`` / ``hsv2bgr_u8`` on all 2^24 inputs each way, in cv2's
@@ -51,6 +52,15 @@ GREY = (114, 114, 114)
 # ---------------------------------------------------------------- the golden
 
 
+def png_dataset(cls, root):
+    """A port dataset over the golden fixture, whose frames are PNGs: the
+    port reads baseline JPEG only, so the frames are read here with cv2 and
+    handed over through ``load_frame`` (the mosaic path is under test)."""
+    ds = cls(root, "train.json", img_size=_IMG_SIZE)
+    ds.load_frame = lambda im_ann: cv2.imread(ds._file_name(im_ann))
+    return ds
+
+
 def port_golden_arrays(root):
     """``test_mosaic_golden._collect`` through the port's wrappers."""
     out = {}
@@ -64,7 +74,7 @@ def port_golden_arrays(root):
 
     aug = dict(degrees=5.0, translate=0.05, scale=(0.8, 1.2), shear=1.0, mosaic_prob=1.0)
     wrapped = tmosaic.MosaicDetection(
-        tdatasets.ONE_ARGOVERSEDataset(root, "train.json", img_size=_IMG_SIZE),
+        png_dataset(tdatasets.ONE_ARGOVERSEDataset, root),
         img_size=_IMG_SIZE, mosaic=True, enable_mixup=False,
         preproc=ttransforms.DoubleTrainTransform(max_labels=50, hsv=False, flip=True), **aug)
     for seed in range(4):
@@ -74,7 +84,7 @@ def port_golden_arrays(root):
         out[f"double_sup_{seed}"] = sup_label
 
     still = tmosaic.StillMosaicDetection(
-        tdatasets.STILL_ARGOVERSEDataset(root, "train.json", img_size=_IMG_SIZE),
+        png_dataset(tdatasets.STILL_ARGOVERSEDataset, root),
         img_size=_IMG_SIZE, mosaic=True, enable_mixup=True, mixup_prob=1.0, mscale=(0.6, 1.8),
         preproc=ttransforms.TrainTransform(max_labels=50, hsv=False, flip=True), **aug)
     for seed in range(6):
@@ -120,24 +130,30 @@ def image(seed, h, w):
     return np.random.RandomState(seed).randint(0, 256, (h, w, 3), np.uint8)
 
 
+RESIZE_IMPLS = {"native": cv2_ops.resize_u8, "reference": cv2_ops.resize_u8_reference}
+
+
+@pytest.mark.parametrize("impl", sorted(RESIZE_IMPLS))
 @settings(max_examples=60, deadline=None)
 @given(h=st.integers(1, 40), w=st.integers(1, 40), oh=st.integers(1, 90),
        ow=st.integers(1, 90), seed=st.integers(0, 2**16))
-def test_resize_equals_cv2(h, w, oh, ow, seed):
-    """Down and up (the 2x average and the general fixed point alike)."""
+def test_resize_equals_cv2(impl, h, w, oh, ow, seed):
+    """Down and up (the 2x average and the general fixed point alike), for
+    the native resize and its NumPy twin."""
     for src_hw in ((h, w), (2 * oh, 2 * ow)):
         img = image(seed, *src_hw)
         want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_LINEAR)
-        np.testing.assert_array_equal(cv2_ops.resize_u8(img, oh, ow), want)
+        np.testing.assert_array_equal(RESIZE_IMPLS[impl](img, oh, ow), want)
 
 
+@pytest.mark.parametrize("impl", sorted(RESIZE_IMPLS))
 @pytest.mark.parametrize("src,dst", [((1200, 1920), (600, 960)), ((1200, 1920), (800, 1280)),
                                      ((600, 960), (331, 530)), ((37, 53), (90, 140)),
                                      ((300, 480), (1200, 1920))])
-def test_resize_equals_cv2_at_frame_sizes(src, dst):
+def test_resize_equals_cv2_at_frame_sizes(src, dst, impl):
     img = image(sum(src), *src)
     want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
-    np.testing.assert_array_equal(cv2_ops.resize_u8(img, *dst), want)
+    np.testing.assert_array_equal(RESIZE_IMPLS[impl](img, *dst), want)
 
 
 warp_cases = dict(

@@ -93,12 +93,22 @@ def test_frames_come_through_load_frame(fixture):
         assert_equal_nested(mem[i], tds[i])
 
 
-def test_imread_without_cv2_raises_clearly(monkeypatch, tmp_path):
+def test_imread_without_cv2_raises_clearly(monkeypatch, tmp_path, fixture):
+    """Without cv2 the dataset's ``imread`` (the port's native decoder)
+    reads a frame equal to ``cv2.imread``, and a missing file raises an
+    ``OSError`` that names it."""
     import sys
 
+    import cv2
+
+    _, tds = datasets(fixture, "TWO")
+    path = tds._file_name(tds.coco.dataset["images"][0])
+    want = cv2.imread(path)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="needs cv2"):
-        tdatasets.imread(str(tmp_path / "frame.jpg"))
+    np.testing.assert_array_equal(tdatasets.imread(path), want)
+    missing = str(tmp_path / "frame.jpg")
+    with pytest.raises(OSError, match="frame.jpg"):
+        tdatasets.imread(missing)
 
 
 @pytest.mark.parametrize("src,dst,exact", [

@@ -3,8 +3,8 @@ card's machine lacks): a fresh interpreter in which ``import jax``,
 ``import flax``, ``import streamyolo_tpu`` and ``import cv2`` fail imports
 every module of ``streamyolo_torch`` (``parallel``, ``parallel/spatial.py``,
 ``utils/aot.py``, ``tools/precompile.py``, ``tools/export_safetensors.py``, the augmentation
-path's ``data/cv2_ops.py``, ``vis`` and ``tools/vis_results.py`` among
-them), ``chip_smoke.py`` and the tests' fresh-process helper
+path's ``data/cv2_ops.py``, the frame reader ``data/image_io.py`` and its
+``native`` binding, ``vis`` and ``tools/vis_results.py`` among them), ``chip_smoke.py`` and the tests' fresh-process helper
 ``tests/_torch_aot_child.py``."""
 
 import os
@@ -25,7 +25,8 @@ assert {"streamyolo_torch.parallel", "streamyolo_torch.parallel.multihost",
         "streamyolo_torch.tools.export_safetensors", "streamyolo_torch.data.cv2_ops",
         "streamyolo_torch.data.mosaic", "streamyolo_torch.vis",
         "streamyolo_torch.tools.vis_results", "streamyolo_torch.tools.augment_check",
-        "streamyolo_torch.utils.wandb_logger", "streamyolo_torch.version"} <= set(names), names
+        "streamyolo_torch.utils.wandb_logger", "streamyolo_torch.version",
+        "streamyolo_torch.data.image_io", "streamyolo_torch.native"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
