@@ -10,10 +10,10 @@ decode of the card against the CPU's, serves StreamYOLO-l at 600x960
 through ``CUDAStreamDetector`` (host path and ``device_preproc``) with
 random weights from a seed, checks the outputs (the card's fp32 step against
 the CPU, bf16 against fp32), reads frames from disk without cv2 (phase
-``image_io``: ``tests/torch_jpeg``'s JPEGs decoded and resized by the port's
-native code against cv2's digests, the host path against ``device_preproc``
-bit for bit, ``stream_det`` and ``offline_det`` reading the frames from
-disk), and times the step and each kernel with CUDA
+``image_io``: ``tests/torch_jpeg``'s JPEGs and PNGs decoded and the JPEGs
+resized and encoded by the port's native code against cv2's digests, the
+host path against ``device_preproc`` bit for bit, ``stream_det`` and
+``offline_det`` reading the frames from disk), and times the step and each kernel with CUDA
 events, one call at a time and back to back. Then it serves 8 camera streams
 through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
 per-stream restart, fp32 rows against ``CUDAStreamDetector``), times the
@@ -26,7 +26,12 @@ pseudo-streaming evaluation (``streamyolo_torch/tools/eval.py``'s path: the
 port's ``Exp``, the val dataset and loader, the sequential-dedup forward with
 its first-batch guard and the dual-frame forward, kernel B1 at K = 1000, the
 ONEX evaluator, native COCOeval) on 2 in-memory synthetic sequences of 11 raw
-1200x1920 frames in batches of 8. Last, it trains StreamYOLO-l at full width
+1200x1920 frames in batches of 8; then (phase ``from_disk``) the port writes
+those frames to disk as the JAX package's generator does with cv2 (each
+file's sha256 held to cv2's), ``tools/eval.py``'s entry scores them from
+disk with rows equal bit for bit to the same eval on the decoded frames in
+memory, and ``tools/sap_rehearsal.py`` streams its default fixture, written
+by the port, from disk. Last, it trains StreamYOLO-l at full width
 through ``streamyolo_torch/tools/train.py``'s entry (bf16 autocast, batch 8,
 2 epochs on 2 in-memory synthetic sequences of 24 raw 1200x1920 frames, the
 first on the mosaic branch, which the loader workers build in NumPy without
@@ -67,7 +72,7 @@ replays), and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
 no result. Imports nothing of JAX. ``--only train`` (or
 ``trained_e2e``, ``aot_serve``, ``data_parallel``, ``spatial``,
-``image_io``) runs the build and that phase alone.
+``image_io``, ``from_disk``) runs the build and that phase alone.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import hashlib
 import itertools
 import json
 import pickle
@@ -166,6 +172,9 @@ SPATIAL_IOU, SPATIAL_MATCHED_MIN, SPATIAL_SCORE_GAP = 0.99, 0.99, 1e-3
 # image_io: the fixtures (cv2's digests beside them), host times' median count
 JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_jpeg"
 IMAGE_IO_TIMED, IMAGE_IO_SIZES = 20, ((600, 960), (601, 959))
+# from_disk: the rehearsal's fixture written by the port (frames a
+# sequence) and its measured latency samples
+FROM_DISK_REHEARSAL_FRAMES, FROM_DISK_REHEARSAL_SAMPLES = 10, 5
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
 NMS_OPS_PER_IOU = 14
 # per output pixel and channel: 3 adds, 1 mul, 1 add, floor, 2 clamps
@@ -3025,8 +3034,6 @@ def host_ms(fn, iters: int = IMAGE_IO_TIMED) -> float:
 def image_digest(arr) -> dict:
     """Shape and sha256 of an array's bytes, as ``tests/torch_jpeg/digests.json``
     holds cv2's."""
-    import hashlib
-
     arr = np.ascontiguousarray(arr)
     return {"shape": list(arr.shape), "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
 
@@ -3051,7 +3058,7 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
 
     from streamyolo_torch.data import db_from_img_folder
     from streamyolo_torch.data.cv2_ops import resize_u8, resize_u8_reference
-    from streamyolo_torch.data.image_io import image_size, imdecode, imread
+    from streamyolo_torch.data.image_io import image_size, imdecode, imencode, imread
     from streamyolo_torch.exp import get_exp
     from streamyolo_torch.ops.nms_cuda import nms_keep
     from streamyolo_torch.ops.preproc import downsample2x
@@ -3075,6 +3082,18 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
                       f"image_io: resize of {rel} to {key} differs from cv2's")
     raws = [frames[k] for k in sorted(frames)]
     check(len(raws) == 3, f"image_io: {len(raws)} full-size frames in the fixtures")
+    # the encoder: each frame at quality 90 and 95 to cv2.imencode's bytes
+    for rel, by_quality in sorted(digests["encode"].items()):
+        for key, want in by_quality.items():
+            data = imencode(frames[rel], int(key[1:]))
+            check(len(data) == want["size"]
+                  and hashlib.sha256(data).hexdigest() == want["sha256"],
+                  f"image_io: imencode of {rel} at {key} differs from cv2.imencode")
+    # PNG: each committed file decodes to cv2.imread's bytes
+    for rel, want in sorted(digests["png"].items()):
+        check(image_digest(imread(JPEG_FIXTURES / rel)) == want
+              and list(image_size(JPEG_FIXTURES / rel)) == want["shape"][:2],
+              f"image_io: {rel} decodes to other bytes or size than cv2's")
     first = sorted(frames)[0]
     data = (JPEG_FIXTURES / first).read_bytes()
     times = {"decode_ms": host_ms(lambda: imdecode(data)),
@@ -3175,7 +3194,8 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
           f"image_io: offline_det from disk: launches {launches['offline_det']}")
     cv2_loaded = sys.modules.get("cv2") is not None
     check(not cv2_loaded, "image_io: cv2 was imported")
-    emit("image_io", fixtures=len(digests["decode"]), digests_equal=True,
+    emit("image_io", fixtures=len(digests["decode"]), png_fixtures=len(digests["png"]),
+         encodes=sum(len(v) for v in digests["encode"].values()), digests_equal=True,
          frame="1200x1920 baseline 4:2:0 q90 (the JAX generator's)", times=times,
          model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
          host_rows_equal_device_preproc=True, multi_stream_raw_equal_preprocessed=True,
@@ -3186,9 +3206,163 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
     return launches
 
 
+def png_of(frame: np.ndarray) -> bytes:
+    """A [H, W, 3] BGR frame as an RGB PNG whose rows all use the Paeth
+    filter (the costliest to undo), deflated by ``zlib``: a file to time the
+    port's PNG reading on, built without an encoder."""
+    import struct
+    import zlib
+
+    rgb = frame[..., ::-1].astype(np.int16).reshape(frame.shape[0], -1)
+    a = np.zeros_like(rgb)
+    a[:, 3:] = rgb[:, :-3]  # the left neighbour, one pixel (3 bytes) back
+    b = np.zeros_like(rgb)
+    b[1:] = rgb[:-1]  # the row above
+    c = np.zeros_like(rgb)
+    c[1:, 3:] = rgb[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((len(rgb), 1), 4, np.uint8),
+                           ((rgb - pred) & 0xFF).astype(np.uint8)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    h, w = frame.shape[:2]
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def phase_from_disk(out_dir: Path, smi: str, device: str = "cuda") -> dict:
+    """The Argoverse-HD layout written and read on the card's host, which has
+    no cv2. ``make_synthetic_argoverse`` writes the offline eval's fixture
+    (``EVAL_SEQS`` x ``EVAL_FRAMES`` frames of 1200x1920, quality 90,
+    ``SEED``) with the port's JPEG encoder, each file's sha256 held to what
+    the JAX package writes with cv2 (``tests/torch_jpeg/digests.json``);
+    ``tools/eval.py``'s entry scores StreamYOLO-l at 600x960 (bf16, batch
+    ``EVAL_BATCH``, the seeded weights of ``EVAL_CONFIG``) from those files
+    with no ``load_frame``, and its COCO rows must equal bit for bit the
+    same eval fed ``imdecode(imencode(frame, 90))`` in memory; then
+    ``tools/sap_rehearsal.py`` without ``--in-memory`` writes its own
+    ``REHEARSAL_SEQS`` x ``FROM_DISK_REHEARSAL_FRAMES`` fixture under this
+    phase's directory and streams it from disk (host path, measured
+    latencies, the annotations as ground truth). Times ``imencode`` of a
+    frame at quality 90 and the PNG decode of a 1200x1920 frame (medians of
+    ``IMAGE_IO_TIMED``, host clock). Kernel launches are counted from 0
+    before each run and read after it. ``device="cpu"`` rehearses the
+    phase without a card."""
+    import shutil
+
+    import torch
+
+    from streamyolo_torch.data import SyntheticArgoverse, make_synthetic_argoverse
+    from streamyolo_torch.data.image_io import imdecode, imencode
+    from streamyolo_torch.exp import get_exp
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.tools import eval as eval_tool
+    from streamyolo_torch.tools import sap_rehearsal
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    want = json.loads((JPEG_FIXTURES / "digests.json").read_text())["from_disk"]
+    raw_size = (2 * INPUT[0], 2 * INPUT[1])
+    params = dict(seq_lens=(EVAL_FRAMES,) * EVAL_SEQS, size=raw_size, seed=SEED)
+    check(want["params"] == json.loads(json.dumps(params)),
+          f"from_disk: digests.json holds the files of {want['params']}, not {params}")
+    launches = {}
+
+    def counted(name, fn):
+        nms_keep.launches = 0
+        downsample2x.launches = 0
+        out = fn()
+        launches[name] = {"nms": nms_keep.launches, "preproc": downsample2x.launches}
+        return out
+
+    # 1. the fixture, written by the port
+    data_dir = out_dir / "argoverse"
+    t = time.perf_counter()
+    make_synthetic_argoverse(str(data_dir), **params)
+    write_s = time.perf_counter() - t
+    files = {p.relative_to(data_dir).as_posix(): hashlib.sha256(p.read_bytes()).hexdigest()
+             for p in sorted(data_dir.rglob("*.jpg"))}
+    check(files == want["sha256"],
+          f"from_disk: {sum(files.get(k) != v for k, v in want['sha256'].items())} of "
+          f"{len(want['sha256'])} written files differ from cv2's")
+
+    # 2-3. the eval CLI from the files, then fed the same frames in memory
+    exp = get_exp(exp_name=EVAL_CONFIG)
+    weights = out_dir / "l_seed0.pth"
+    torch.save(lifted_state(exp), weights)
+
+    def argv(name):
+        return ["-f", f"cfgs/{EVAL_CONFIG}.py", "-c", str(weights), "-b", str(EVAL_BATCH),
+                "--fp16", "--device", device, "-expn", name, "data_dir", str(data_dir),
+                "output_dir", str(out_dir / "runs"), "data_num_workers", "0",
+                "test_size", str(INPUT)]
+
+    synth = SyntheticArgoverse(**params)
+    n_batches = -(-EVAL_SEQS * EVAL_FRAMES // EVAL_BATCH)
+    k = n_batches if device == "cuda" else 0  # a kernel's wrapper launches it only on a card
+    t = time.perf_counter()
+    disk = counted("eval", lambda: eval_tool.main(argv("disk")))
+    eval_s = time.perf_counter() - t
+    memory = counted("eval_in_memory", lambda: eval_tool.main(
+        argv("memory"), load_frame=lambda img: imdecode(imencode(synth.frame(img), 90))))
+    check(len(disk["rows"]) > 0 and disk["rows"] == memory["rows"],
+          f"from_disk: the eval's {len(disk['rows'])} rows from disk differ from its "
+          f"{len(memory['rows'])} rows on the decoded frames in memory")
+    check(launches["eval"] == launches["eval_in_memory"] == {"nms": k, "preproc": 0},
+          f"from_disk: eval launches {launches} for {n_batches} batches")
+
+    # 4. the sAP rehearsal's default disk fixture, written and read by the port
+    reh_dir = out_dir / "rehearsal"
+    t = time.perf_counter()
+    summary = counted("sap_rehearsal", lambda: sap_rehearsal.main(
+        ["-f", f"cfgs/{EVAL_CONFIG}.py", "--weights", str(weights), "--out-dir", str(reh_dir),
+         "--device", device, "--seqs", str(REHEARSAL_SEQS),
+         "--frames", str(FROM_DISK_REHEARSAL_FRAMES), "--frame-size", *map(str, raw_size),
+         "--measure", str(FROM_DISK_REHEARSAL_SAMPLES), "--gt", "annotations",
+         "--seed", str(SEED)]))
+    rehearsal_s = time.perf_counter() - t
+    n_frames = REHEARSAL_SEQS * FROM_DISK_REHEARSAL_FRAMES
+    written = sorted(reh_dir.glob("fixture/Argoverse-1.1/tracking/*/*.jpg"))
+    check(len(written) == n_frames, f"from_disk: the rehearsal wrote {len(written)} frames")
+    check(summary["frames"]["total"] == n_frames and summary["frames"]["processed"] >= 1
+          and summary["sAP"] is not None and 0 <= summary["sAP"] <= 100,
+          f"from_disk: the rehearsal from disk summarised {summary}")
+    calls = summary["frames"]["processed"]  # each a detector call, so a B1 launch
+    check(launches["sap_rehearsal"]["preproc"] == 0
+          and (device != "cuda" or launches["sap_rehearsal"]["nms"] >= calls),
+          f"from_disk: rehearsal launches {launches['sap_rehearsal']} for {calls} results")
+
+    # host times: the encoder at quality 90, the PNG reader, a 1200x1920 frame
+    frame = synth.frame(synth.data["images"][0])
+    png = png_of(frame)
+    check(np.array_equal(imdecode(png), frame), "from_disk: the PNG frame decodes to other bytes")
+    times = {"imencode_q90_ms": host_ms(lambda: imencode(frame, 90)),
+             "png_decode_ms": host_ms(lambda: imdecode(png)), "png_bytes": len(png),
+             "write_fixture_s": write_s, "eval_from_disk_s": eval_s,
+             "rehearsal_s": rehearsal_s}
+    cv2_loaded = sys.modules.get("cv2") is not None
+    check(not cv2_loaded, "from_disk: cv2 was imported")
+    emit("from_disk", nvidia_smi=smi, fixture=f"{EVAL_SEQS}x{EVAL_FRAMES} frames "
+         f"{raw_size[0]}x{raw_size[1]} q90, written by the port", files=len(files),
+         files_equal_cv2=True, model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT),
+         dtype="bfloat16", eval_rows=len(disk["rows"]), rows_equal_in_memory=True,
+         AP=100 * disk["ap"], rehearsal={k: summary[k] for k in ("frames", "sAP", "latency_ms")},
+         rehearsal_fixture=f"{REHEARSAL_SEQS}x{FROM_DISK_REHEARSAL_FRAMES} frames, written "
+         "by the port", times=times, launches=launches, cv2_loaded=cv2_loaded,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main(only: str = None) -> int:
     """The whole script; ``only`` (``"data_parallel"``, ``"aot_serve"``,
-    ``"train"``, ``"trained_e2e"``, ``"image_io"`` or ``"spatial"``, which
+    ``"train"``, ``"trained_e2e"``, ``"image_io"``, ``"from_disk"`` or
+    ``"spatial"``, which
     calibrates its int8 model first) runs the device line, the build and that phase alone
     (for work on it), and prints no result."""
     import torch
@@ -3237,6 +3411,9 @@ def main(only: str = None) -> int:
         return 0
     if only == "image_io":
         phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io")
+        return 0
+    if only == "from_disk":
+        phase_from_disk(Path(__file__).resolve().parent / "build" / "chip_smoke_from_disk", smi)
         return 0
     if only == "spatial":
         from streamyolo_torch.exp import get_exp
@@ -3469,6 +3646,11 @@ def main(only: str = None) -> int:
     offline = phase_offline_eval(Path(__file__).resolve().parent / "build" / "chip_smoke_eval",
                                  floor)
 
+    # 8b. the Argoverse-HD layout written by the port and read from disk:
+    # the eval CLI (rows against the decoded frames in memory) and the
+    # rehearsal's default disk fixture
+    from_disk = phase_from_disk(root / "chip_smoke_from_disk", smi)
+
     # 9. training through tools/train.py (B1 in the per-epoch EMA eval)
     train = phase_train(Path(__file__).resolve().parent / "build" / "chip_smoke_train")
 
@@ -3533,7 +3715,8 @@ def main(only: str = None) -> int:
         {"name": "nms_keep (B1)", "route": "cuda", "source": "streamyolo_torch/csrc/nms.cu",
          "replaces": "streamyolo_tpu/ops/nms_pallas.py:26",
          "launches": launches["nms"] + spatial["nms"] + sum(graph_launches("nms").values())
-         + sum(c["nms"] for c in image_io.values()),
+         + sum(c["nms"] for c in image_io.values())
+         + sum(c["nms"] for c in from_disk.values()),
          "max_abs_err": nms_err, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
@@ -3550,6 +3733,7 @@ def main(only: str = None) -> int:
                               "data_parallel_eval": dp["launches"],
                               "spatial_n8_float32": spatial["nms"],
                               **{f"image_io_{k}": c["nms"] for k, c in image_io.items()},
+                              **{f"from_disk_{k}": c["nms"] for k, c in from_disk.items()},
                               "data_parallel_eval_by_rank": dp["launches_by_rank"],
                               **graph_launches("nms")},
          "graph_launches": graph_note,
@@ -3563,7 +3747,8 @@ def main(only: str = None) -> int:
          "source": "streamyolo_torch/csrc/preproc.cu",
          "replaces": "streamyolo_tpu/ops/preproc_pallas.py:33",
          "launches": launches["preproc"] + sum(graph_launches("preproc").values())
-         + sum(c["preproc"] for c in image_io.values()),
+         + sum(c["preproc"] for c in image_io.values())
+         + sum(c["preproc"] for c in from_disk.values()),
          "max_abs_err": pre_err, "ms": b2_ms,
          "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": b2_lib_ms, "max_abs_diff_vs_plain": pre_err, "kernel_ms": b2_ms,
@@ -3580,6 +3765,7 @@ def main(only: str = None) -> int:
                               **new_path_launches("preproc", cli, streamer, trained),
                               "spatial_n8_float32": spatial["preproc"],
                               **{f"image_io_{k}": c["preproc"] for k, c in image_io.items()},
+                              **{f"from_disk_{k}": c["preproc"] for k, c in from_disk.items()},
                               **graph_launches("preproc")},
          "graph_launches": graph_note},
         {"name": "int8_conv", "route": "cuda", "source": "streamyolo_torch/csrc/int8_conv.cu",
@@ -3621,6 +3807,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
         sys.exit(aot_serve_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in (
-            "data_parallel", "aot_serve", "train", "trained_e2e", "spatial", "image_io"):
+            "data_parallel", "aot_serve", "train", "trained_e2e", "spatial", "image_io",
+            "from_disk"):
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -15,8 +15,8 @@ from 0 and equal to the dataset index.
 
 Pixels come through ``load_frame(image_dict) -> BGR uint8``: by default
 ``imread`` of ``<data_dir>/Argoverse-1.1/tracking/<seq_dir>/<name>``
-(``data/image_io.py``, the native JPEG decoder, equal to ``cv2.imread``; no
-cv2), or e.g. ``SyntheticArgoverse.frame`` for frames kept in memory. The
+(``data/image_io.py``, the native JPEG and PNG decoders, equal to
+``cv2.imread``; no cv2), or e.g. ``SyntheticArgoverse.frame`` for frames kept in memory. The
 annotation tuples hold the image dicts where the JAX package holds file
 names. ``input_dim`` is the mutable letterbox size of the
 transforms (the yolox ``Dataset.input_dim`` indirection); frames are read

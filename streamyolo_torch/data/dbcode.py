@@ -12,12 +12,14 @@
     ``make_synthetic_argoverse`` writes it as JPEG frames plus annotation
     JSON, in the JAX package's layout.
 
-``cv2`` is imported only where a JPEG is written (``db_from_img_folder``
-takes each frame's size from its header, ``data/image_io.py``). The generator
-draws from its RNG in the JAX package's order, so the annotations are the
-same; the background is upscaled by ``data/cv2_ops.py::resize_u8``, equal
-to ``cv2.resize`` with ``INTER_LINEAR`` bit for bit, so the frames are the
-JAX package's.
+Nothing here imports cv2: ``db_from_img_folder`` takes each frame's size
+from its JPEG or PNG header and ``make_synthetic_argoverse`` writes its
+frames with ``data/image_io.py``'s ``imwrite``, byte for byte what
+``cv2.imwrite`` writes. The generator draws from its RNG in the JAX
+package's order, so the annotations are the same; the background is
+upscaled by ``data/cv2_ops.py::resize_u8``, equal to ``cv2.resize`` with
+``INTER_LINEAR`` bit for bit, so the frames, and the files, are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 
 from streamyolo_torch.data.argoverse_classes import ARGOVERSE_CLASSES, COCO_SUBSET
 from streamyolo_torch.data.cv2_ops import resize_u8
-from streamyolo_torch.data.image_io import image_size
+from streamyolo_torch.data.image_io import image_size, imwrite
 
 COCO_CLASSES = (
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
@@ -66,8 +68,9 @@ def db_from_img_folder(
 ) -> dict:
     """A COCO-format dataset dict (no annotations) from a folder of sequence
     subdirectories (or a flat folder = one sequence). Each frame's size is
-    read from its JPEG header (``image_size``: the size ``cv2.imread``
-    returns, Exif orientation included), without decoding it."""
+    read from its JPEG or PNG header (``image_size``: the size
+    ``cv2.imread`` returns, Exif orientation included), without decoding
+    it."""
     entries = sorted(os.listdir(img_dir))
     seq_names = [e for e in entries if os.path.isdir(os.path.join(img_dir, e))]
     if not seq_names:
@@ -234,9 +237,8 @@ def make_synthetic_argoverse(
 ) -> str:
     """Write ``SyntheticArgoverse`` under ``root`` in the Argoverse-HD layout:
     ``Argoverse-1.1/tracking/<seq>/<frame>.jpg`` (JPEG quality 90) plus
-    ``Argoverse-HD/annotations/<split>`` COCO jsons. Returns ``str(root)``."""
-    import cv2
-
+    ``Argoverse-HD/annotations/<split>`` COCO jsons, each file byte for byte
+    the JAX package's. Returns ``str(root)``."""
     synth = SyntheticArgoverse(seq_lens, size, n_objects, fps, seed, obj_frac)
     ann_dir = os.path.join(root, "Argoverse-HD", "annotations")
     os.makedirs(ann_dir, exist_ok=True)
@@ -244,8 +246,7 @@ def make_synthetic_argoverse(
     for img in synth.data["images"]:
         d = os.path.join(root, "Argoverse-1.1", "tracking", seq_dirs[img["sid"]])
         os.makedirs(d, exist_ok=True)
-        cv2.imwrite(os.path.join(d, img["name"]), synth.frame(img),
-                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        imwrite(os.path.join(d, img["name"]), synth.frame(img), quality=90)
     for split in splits:
         with open(os.path.join(ann_dir, split), "w") as f:
             json.dump(synth.data, f)

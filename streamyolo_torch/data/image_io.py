@@ -1,42 +1,68 @@
-"""Reading frames without cv2: the port's counterpart of the JAX package's
-``cv2.imread``, for a host (the card's) that has no cv2, PIL or
-torchvision.
+"""Reading and writing frames without cv2: the port's counterpart of the JAX
+package's ``cv2.imread`` / ``cv2.imwrite``, for a host (the card's) that has
+no cv2, PIL or torchvision.
 
-  * ``imdecode(buf)``: baseline JPEG bytes -> [H, W, 3] BGR uint8, equal bit
-    for bit to ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``;
+  * ``imdecode(buf)``: baseline JPEG or PNG bytes -> [H, W, 3] BGR uint8,
+    equal bit for bit to ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``;
   * ``imread(path)``: the file's bytes through ``imdecode``, equal to
     ``cv2.imread(path)``;
   * ``image_size(path)``: (height, width) of what ``imread`` returns, from
-    the frame header alone.
+    the headers alone;
+  * ``imencode(img, quality)``: [H, W, 3] BGR or [H, W] gray uint8 -> the
+    bytes of ``cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, quality])``,
+    byte for byte;
+  * ``imwrite(path, img, quality)``: those bytes to a ``.jpg`` / ``.jpeg``
+    file (PNG writing is not supported).
 
-The decoder is native (``native/image_io.cpp``, built with ``g++`` at first
-use): libjpeg-turbo's default decompression, as cv2 runs it, transcribed
-(the islow IDCT, fancy upsampling, its YCbCr -> RGB tables). cv2 applies an
-Exif Orientation tag, and so does ``imdecode``, here in NumPy. It reads
-baseline and extended-sequential Huffman files with one scan of 1 or 3
+The codecs are native (``native/image_io.cpp``, built with ``g++`` at first
+use). The JPEG decoder transcribes libjpeg-turbo's default decompression, as
+cv2 runs it (the islow IDCT, fancy upsampling, its YCbCr -> RGB tables); it
+reads baseline and extended-sequential Huffman files with one scan of 1 or 3
 components at 8 bits, any integral sampling factors, restart intervals and
-files without a DHT (libjpeg's standard tables). Anything else (progressive,
-lossless, arithmetic, 12-bit, CMYK, an RGB-coded file, multiple scans, PNG)
-raises ``OSError`` naming it. Where libjpeg meets corrupt or truncated
-entropy-coded data it warns, fills the rest with zeros and returns an
-image; ``imdecode`` raises ``OSError`` instead.
+files without a DHT (libjpeg's standard tables). Anything else
+(progressive, lossless, arithmetic, 12-bit, CMYK, an RGB-coded file,
+multiple scans) raises ``OSError`` naming it. Where libjpeg meets corrupt or
+truncated entropy-coded data it warns, fills the rest with zeros and returns
+an image; ``imdecode`` raises ``OSError`` instead. The encoder transcribes
+libjpeg-turbo's default compression (baseline, 4:2:0 for colour, standard
+Huffman tables, JFIF 1.01).
+
+A PNG's chunks are parsed here (CRCs checked with ``zlib.crc32``, a bad one
+drops an ancillary chunk as libpng does and refuses the file in a critical
+one) and its data inflated with ``zlib``; the native code undoes the filters
+and the Adam7 interlace and converts as cv2 asks libpng to: 16-bit samples
+to their high byte, 1/2/4-bit gray scaled to 0..255, gray replicated, the
+palette expanded, alpha (and so tRNS) dropped without compositing, RGB to
+BGR. Files for which cv2 returns None (a bad CRC in a critical chunk, a
+truncated or corrupt data stream, a bad filter type, no IEND) raise
+``OSError``, as do animated PNGs and unknown critical chunks.
+
+cv2 applies an Exif Orientation tag (a JPEG's APP1 segment, a PNG's eXIf
+chunk), and so do ``imdecode`` and ``image_size``, here in NumPy.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Tuple
+import struct
+import zlib
+from typing import NamedTuple, Tuple
 
 import numpy as np
 
 from streamyolo_torch.native import load_image_io
 
 _ERR_LEN = 256
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> the bit depths the PNG specification allows for it
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_PNG_MAX_SIDE, _PNG_MAX_PIXELS = 1_000_000, 1 << 30  # libpng's and cv2's limits
+_JPEG_EXTENSIONS = (".jpg", ".jpeg")
 
 
 def _header(buf: bytes):
-    """(height, width, orientation) of the undecoded image; OSError for a
+    """(height, width, orientation) of the undecoded JPEG; OSError for a
     file the decoder refuses."""
     lib = load_image_io()
     info = np.zeros(3, np.int64)
@@ -59,11 +85,125 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+class _Png(NamedTuple):
+    height: int
+    width: int
+    depth: int
+    color_type: int
+    interlaced: bool
+    palette: bytes  # the PLTE chunk's RGB triples (palette images only)
+    data: bytes  # the IDAT chunks' concatenated (deflated) bytes
+    orientation: int  # of the first eXIf chunk, 0 if none
+
+
+def _png_chunks(buf: bytes) -> _Png:
+    """The chunks of a PNG file that cv2's reading depends on; OSError
+    where cv2 returns None, or for what this reader does not support."""
+    n, pos = len(buf), len(_PNG_SIGNATURE)
+    ihdr = palette = None
+    idat, orientation, plte_seen = [], None, False
+    idat_done = False  # a chunk other than IDAT followed the IDAT chunks
+    while True:
+        if n - pos < 8:
+            raise OSError("truncated PNG: no IEND chunk")
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        name = kind.decode("latin-1")
+        if length > n - pos - 12:
+            raise OSError(f"truncated PNG: the {name} chunk ends past the file")
+        data = buf[pos + 8:pos + 8 + length]
+        crc = int.from_bytes(buf[pos + 8 + length:pos + 12 + length], "big")
+        pos += 12 + length
+        if ihdr is None and kind != b"IHDR":
+            raise OSError(f"PNG: the first chunk is {name}, not IHDR")
+        critical = not kind[0] & 0x20
+        if zlib.crc32(kind + data) != crc:
+            if critical:
+                raise OSError(f"PNG {name} chunk: CRC mismatch")
+            continue  # libpng drops an ancillary chunk with a bad CRC
+        if kind == b"IHDR":
+            if ihdr is not None:
+                raise OSError("PNG: more than one IHDR chunk")
+            if length != 13:
+                raise OSError(f"PNG IHDR chunk of {length} bytes, not 13")
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            if plte_seen:
+                raise OSError("PNG: more than one PLTE chunk")
+            plte_seen = True
+            if not idat:  # libpng reads a palette only before the data
+                palette = data
+        elif kind == b"IDAT":
+            if idat_done:
+                raise OSError("PNG: IDAT chunks that are not consecutive")
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+        elif kind == b"eXIf":
+            if orientation is None:
+                orientation = load_image_io().exif_orientation_tag(data, len(data))
+        elif kind in (b"acTL", b"fcTL", b"fdAT"):
+            raise OSError(f"animated PNG ({name} chunk) is not supported")
+        elif critical:
+            raise OSError(f"PNG: unknown critical chunk {name}")
+        if idat and kind != b"IDAT":
+            idat_done = True
+    width, height, depth, color_type, compression, filter_method, interlace = ihdr
+    if not (1 <= width <= _PNG_MAX_SIDE and 1 <= height <= _PNG_MAX_SIDE
+            and width * height <= _PNG_MAX_PIXELS):
+        raise OSError(f"PNG size {height}x{width} is outside what cv2 reads")
+    if depth not in _PNG_DEPTHS.get(color_type, ()):
+        raise OSError(f"PNG: bit depth {depth} with colour type {color_type} is not valid")
+    if compression or filter_method or interlace > 1:
+        raise OSError(f"PNG: compression {compression}, filter method {filter_method}, "
+                      f"interlace {interlace}: not valid")
+    if not idat:
+        raise OSError("PNG: no IDAT chunk")
+    if color_type == 3:
+        if palette is None:
+            raise OSError("PNG: palette image without a PLTE chunk before its data")
+        if not palette or len(palette) % 3 or len(palette) > 768:
+            raise OSError(f"PNG PLTE chunk of {len(palette)} bytes")
+    return _Png(height, width, depth, color_type, interlace == 1, palette or b"",
+                b"".join(idat), orientation or 0)
+
+
+def _png_decode(buf: bytes) -> np.ndarray:
+    png = _png_chunks(buf)
+    lib = load_image_io()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    need = lib.png_data_size(png.height, png.width, png.depth, png.color_type,
+                             int(png.interlaced), err, _ERR_LEN)
+    if need < 0:
+        raise OSError(err.value.decode(errors="replace"))
+    inflate = zlib.decompressobj()
+    try:
+        raw = inflate.decompress(png.data, need)
+        while not inflate.eof:  # the stream must end; data past the image is dropped
+            more = inflate.decompress(inflate.unconsumed_tail, 1 << 20)
+            if not more and not inflate.unconsumed_tail:
+                break
+    except zlib.error as e:
+        raise OSError(f"PNG: corrupt IDAT data stream ({e})") from e
+    if not inflate.eof:
+        raise OSError("PNG: truncated IDAT data stream")
+    if len(raw) < need:
+        raise OSError(f"PNG: {len(raw)} bytes of image data, {need} needed")
+    palette = np.zeros(768, np.uint8)
+    palette[:len(png.palette)] = np.frombuffer(png.palette, np.uint8)
+    out = np.empty((png.height, png.width, 3), np.uint8)
+    if lib.png_decode(raw, len(raw), png.height, png.width, png.depth, png.color_type,
+                      int(png.interlaced), palette, out, err, _ERR_LEN) != 0:
+        raise OSError(err.value.decode(errors="replace"))
+    return _orient(out, png.orientation)
+
+
 def imdecode(buf: bytes) -> np.ndarray:
-    """Baseline JPEG bytes -> [H, W, 3] BGR uint8, as
+    """Baseline JPEG or PNG bytes -> [H, W, 3] BGR uint8, as
     ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``; ``OSError`` where the data is
     not such a file or is corrupt."""
     buf = bytes(buf)
+    if buf.startswith(_PNG_SIGNATURE):
+        return _png_decode(buf)
     h, w, orientation = _header(buf)
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -73,8 +213,8 @@ def imdecode(buf: bytes) -> np.ndarray:
 
 
 def imread(path) -> np.ndarray:
-    """``cv2.imread(path)`` for a JPEG file: [H, W, 3] BGR uint8. Raises
-    ``OSError`` naming ``path`` where cv2 would return None."""
+    """``cv2.imread(path)`` for a JPEG or PNG file: [H, W, 3] BGR uint8.
+    Raises ``OSError`` naming ``path`` where cv2 would return None."""
     path = os.fspath(path)
     try:
         with open(path, "rb") as f:
@@ -85,13 +225,60 @@ def imread(path) -> np.ndarray:
 
 
 def image_size(path) -> Tuple[int, int]:
-    """(height, width) of ``imread(path)``, from the segments before the
-    scan, without decoding."""
+    """(height, width) of ``imread(path)``, from the segments before a
+    JPEG's scan or a PNG's chunks, without decoding."""
     path = os.fspath(path)
     try:
         with open(path, "rb") as f:
             buf = f.read()
-        h, w, orientation = _header(buf)
+        if buf.startswith(_PNG_SIGNATURE):
+            png = _png_chunks(buf)
+            h, w, orientation = png.height, png.width, png.orientation
+        else:
+            h, w, orientation = _header(buf)
     except OSError as e:
         raise OSError(f"cannot read {path}: {e}") from e
     return (w, h) if orientation in (5, 6, 7, 8) else (h, w)
+
+
+def imencode(img: np.ndarray, quality: int = 95) -> bytes:
+    """``cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, quality])[1]``
+    as bytes, byte for byte: ``img`` is [H, W, 3] BGR or [H, W] (or
+    [H, W, 1]) gray uint8, ``quality`` an int in 0..100."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"JPEG writes uint8 images, not {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"JPEG writes [H, W, 3] BGR or [H, W] gray images, not {img.shape}")
+    if not (isinstance(quality, (int, np.integer)) and 0 <= quality <= 100):
+        raise ValueError(f"JPEG quality {quality!r} is not an int in 0..100")
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else 3
+    lib = load_image_io()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    cap = 4096 + img.size // 2
+    while True:
+        out = np.empty(cap, np.uint8)
+        size = lib.jpeg_encode(img.reshape(-1), h, w, channels, int(quality), out, cap,
+                               err, _ERR_LEN)
+        if size < 0:
+            raise ValueError(err.value.decode(errors="replace"))
+        if size <= cap:
+            return out[:size].tobytes()
+        cap = size
+
+
+def imwrite(path, img: np.ndarray, quality: int = 95) -> None:
+    """``cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, quality])`` for a
+    ``.jpg`` / ``.jpeg`` path: the bytes of ``imencode``. Any other
+    extension raises ``ValueError``."""
+    path = os.fspath(path)
+    ext = os.path.splitext(path)[1]
+    if ext.lower() not in _JPEG_EXTENSIONS:
+        raise ValueError(f"imwrite writes JPEG (.jpg, .jpeg) only, not '{ext}': {path}")
+    data = imencode(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)

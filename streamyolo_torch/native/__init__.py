@@ -5,9 +5,11 @@
     ``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the
     greedy track association of ``stream/track.py``) and ``bbox_iou_ltwh``;
   * ``streamyolo_torch/native/image_io.cpp``: ``jpeg_header`` /
-    ``jpeg_decode`` (baseline JPEG, bit-exact with ``cv2.imread``) and
-    ``resize_linear_u8`` (``cv2.resize`` with ``INTER_LINEAR``), for
-    ``data/image_io.py`` and ``data/cv2_ops.py``.
+    ``jpeg_decode`` (baseline JPEG, bit-exact with ``cv2.imread``),
+    ``jpeg_encode`` (byte-exact with ``cv2.imencode('.jpg')``),
+    ``png_data_size`` / ``png_decode`` (a PNG's inflated pixel data, as
+    ``cv2.imread`` reads it), ``exif_orientation_tag`` and ``resize_linear_u8`` (``cv2.resize`` with ``INTER_LINEAR``),
+    for ``data/image_io.py`` and ``data/cv2_ops.py``.
 
 Each library is built with ``g++`` at first use, not at import, into
 ``build/native/`` of the checkout, named by a hash of its source and flags;
@@ -131,6 +133,28 @@ def _declare_image_io(lib: ctypes.CDLL) -> None:
         _u8p, ctypes.c_int64, ctypes.c_int64,                  # dst, out_h, out_w
     ]
     lib.resize_linear_u8.restype = None
+    lib.jpeg_encode.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # img, h, w, channels
+        ctypes.c_int64, _u8p, ctypes.c_int64,                  # quality, out, capacity
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.jpeg_encode.restype = ctypes.c_int64
+    lib.png_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                       # inflated IDAT, size
+        ctypes.c_int64, ctypes.c_int64,                        # h, w
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,        # depth, colour type, interlaced
+        _u8p, _u8p,                                            # palette [256, 3], out [h, w, 3]
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.png_decode.restype = ctypes.c_int
+    lib.png_data_size.argtypes = [
+        ctypes.c_int64, ctypes.c_int64,                        # h, w
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,        # depth, colour type, interlaced
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.png_data_size.restype = ctypes.c_int64
+    lib.exif_orientation_tag.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.exif_orientation_tag.restype = ctypes.c_int
 
 
 def load() -> ctypes.CDLL:

@@ -6,17 +6,27 @@
 //     "islow" integer IDCT (jidctint.c), fancy upsampling (jdsample.c), the
 //     YCbCr -> RGB tables of jdcolor.c, written as BGR. The Exif orientation
 //     is returned by jpeg_header and applied by the caller.
+//   * jpeg_encode: libjpeg-turbo's default compression, which is what
+//     cv2.imencode('.jpg') runs, byte for byte: jpeg_set_quality's tables,
+//     the YCbCr tables of jccolor.c, 4:2:0 by jcsample.c's h2v2_downsample,
+//     jcprepct.c's edge expansion and jccoefct.c's dummy blocks, the islow
+//     FDCT (jfdctint.c), the standard Huffman tables, jcmarker.c's segments.
+//   * png_decode: the pixel half of a PNG read (unfiltering, Adam7, the
+//     conversions of cv2.imread with IMREAD_COLOR); data/image_io.py parses
+//     the chunks and inflates the data. exif_orientation_tag reads a PNG's
+//     eXIf chunk.
 //   * resize_linear_u8: cv2.resize(..., INTER_LINEAR) for [H, W, C] uint8,
 //     the C++ transcription of data/cv2_ops.py::resize_u8_reference.
 //
 // Built by streamyolo_torch/native/__init__.py with g++ (-ffp-contract=off:
 // the resize's float map must round as NumPy's does; -fwrapv: corrupt
 // coefficients wrap instead of being undefined) and bound with ctypes. Every
-// entry point returns 0, or -1 with a message in `err` for a file it refuses.
+// entry point that can fail returns a negative value with a message in `err`.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <stdexcept>
 #include <string>
@@ -532,8 +542,6 @@ void parse_sos(Jpeg& j, const uint8_t* s, int len) {
 // both been read.
 void parse_headers(Jpeg& j, const uint8_t* buf, size_t n, bool to_scan) {
   if (n == 0) fail("empty file");
-  if (n >= 8 && std::memcmp(buf, "\x89PNG\r\n\x1a\n", 8) == 0)
-    fail("not a JPEG file: PNG data (only baseline JPEG is supported)");
   if (n < 2 || buf[0] != 0xFF || buf[1] != 0xD8)
     fail("not a JPEG file: starts with " + hex2(buf[0]) + (n > 1 ? " " + hex2(buf[1]) : ""));
   const uint8_t* p = buf + 2;
@@ -910,6 +918,473 @@ void interpolate(const uint8_t* src, int64_t h, int64_t w, int64_t c_, uint8_t* 
   }
 }
 
+// ------------------------------------------------------------ JPEG encoder
+
+// jcparam.c: the Annex K tables in natural order
+const uint8_t kStdLumQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// jpeg_set_quality(q, force_baseline = TRUE): jpeg_quality_scaling, then
+// jpeg_add_quant_table's (t * scale + 50) / 100 clamped to 1..255
+void scaled_quant(const uint8_t* base, int quality, uint16_t* out) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  const int scale = quality < 50 ? 5000 / quality : 200 - 2 * quality;
+  for (int i = 0; i < 64; ++i) {
+    int t = (base[i] * scale + 50) / 100;
+    out[i] = (uint16_t)std::min(std::max(t, 1), 255);
+  }
+}
+
+// jchuff.c jpeg_make_c_derived_tbl: code and length by symbol
+struct HuffEnc {
+  uint16_t code[256] = {0};
+  uint8_t size[256] = {0};
+  const uint8_t* bits;  // the 16 counts of the DHT segment
+  const uint8_t* vals;
+  int count = 0;
+  HuffEnc(const uint8_t* bits_, const uint8_t* vals_) : bits(bits_), vals(vals_) {
+    uint32_t c = 0;
+    int p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      for (int i = 0; i < bits[l - 1]; ++i, ++p) {
+        code[vals[p]] = (uint16_t)c++;
+        size[vals[p]] = (uint8_t)l;
+      }
+      c <<= 1;
+    }
+    count = p;
+  }
+};
+
+// Entropy-coded bytes: bits MSB first, FF stuffed with 00, the last byte
+// padded with 1-bits (jchuff.c flush_bits)
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t acc = 0;
+  int nbits = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t code, int size) {
+    acc = (acc << size) | (code & ((uint32_t(1) << size) - 1));
+    nbits += size;
+    while (nbits >= 8) {
+      uint8_t b = (uint8_t)(acc >> (nbits - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      nbits -= 8;
+    }
+  }
+  void flush() {
+    put(0x7F, 7);
+    acc = 0;
+    nbits = 0;
+  }
+};
+
+// jfdctint.c jpeg_fdct_islow on samples - 128: rows, then columns; the
+// output is scaled up by 8
+void fdct_islow(int32_t* d) {
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, next = pass ? 1 : 8;
+    const int n = pass ? kConstBits + kPass1Bits : kConstBits - kPass1Bits;
+    for (int k = 0; k < 8; ++k) {
+      int32_t* p = d + k * next;
+      int32_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int32_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int32_t tmp2 = p[2 * step] + p[5 * step], tmp5 = p[2 * step] - p[5 * step];
+      int32_t tmp3 = p[3 * step] + p[4 * step], tmp4 = p[3 * step] - p[4 * step];
+      int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+      int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      if (pass) {
+        p[0] = descale(tmp10 + tmp11, kPass1Bits);
+        p[4 * step] = descale(tmp10 - tmp11, kPass1Bits);
+      } else {
+        p[0] = (tmp10 + tmp11) * (1 << kPass1Bits);
+        p[4 * step] = (tmp10 - tmp11) * (1 << kPass1Bits);
+      }
+      int32_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+      p[2 * step] = descale(z1 + tmp13 * FIX_0_765366865, n);
+      p[6 * step] = descale(z1 + tmp12 * -FIX_1_847759065, n);
+      z1 = tmp4 + tmp7;
+      int32_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int32_t z5 = (z3 + z4) * FIX_1_175875602;
+      tmp4 *= FIX_0_298631336;
+      tmp5 *= FIX_2_053119869;
+      tmp6 *= FIX_3_072711026;
+      tmp7 *= FIX_1_501321110;
+      z1 *= -FIX_0_899976223;
+      z2 *= -FIX_2_562915447;
+      z3 *= -FIX_1_961570560;
+      z4 *= -FIX_0_390180644;
+      z3 += z5;
+      z4 += z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, n);
+      p[5 * step] = descale(tmp5 + z2 + z4, n);
+      p[3 * step] = descale(tmp6 + z2 + z3, n);
+      p[step] = descale(tmp7 + z1 + z4, n);
+    }
+  }
+}
+
+// one 8x8 block of a plane -> quantized coefficients (natural order):
+// jcdctmgr.c, the divisor 8 * q, rounded half away from zero
+void forward_block(const uint8_t* plane, int stride, const uint16_t* quant, int16_t* coef) {
+  int32_t ws[64];
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) ws[8 * r + c] = plane[(size_t)r * stride + c] - 128;
+  fdct_islow(ws);
+  for (int i = 0; i < 64; ++i) {
+    const int32_t d = 8 * quant[i];
+    int32_t v = ws[i];
+    coef[i] = (int16_t)(v < 0 ? -((-v + d / 2) / d) : (v + d / 2) / d);
+  }
+}
+
+// jchuff.c encode_one_block
+void encode_block(BitWriter& bw, const int16_t* coef, int& last_dc, const HuffEnc& dc,
+                  const HuffEnc& ac) {
+  auto emit_value = [&](const HuffEnc& t, int r, int v) {
+    int mag = v < 0 ? -v : v;
+    int nbits = 0;
+    while (mag >> nbits) ++nbits;
+    int sym = (r << 4) | nbits;
+    bw.put(t.code[sym], t.size[sym]);
+    if (nbits) bw.put((uint32_t)(v < 0 ? v - 1 : v), nbits);
+  };
+  emit_value(dc, 0, coef[0] - last_dc);
+  last_dc = coef[0];
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    int v = coef[kNatural[k]];
+    if (v == 0) {
+      ++run;
+      continue;
+    }
+    for (; run > 15; run -= 16) bw.put(ac.code[0xF0], ac.size[0xF0]);
+    emit_value(ac, run, v);
+    run = 0;
+  }
+  if (run > 0) bw.put(ac.code[0], ac.size[0]);
+}
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back((uint8_t)(v >> 8));
+  o.push_back((uint8_t)v);
+}
+
+void marker(std::vector<uint8_t>& o, int m, int len) {
+  o.push_back(0xFF);
+  o.push_back((uint8_t)m);
+  put16(o, len + 2);
+}
+
+// jcmarker.c: DQT (8-bit values in zigzag order), DHT
+void write_dqt(std::vector<uint8_t>& o, int slot, const uint16_t* q) {
+  marker(o, 0xDB, 65);
+  o.push_back((uint8_t)slot);
+  for (int k = 0; k < 64; ++k) o.push_back((uint8_t)q[kNatural[k]]);
+}
+
+void write_dht(std::vector<uint8_t>& o, int index, const HuffEnc& t) {
+  marker(o, 0xC4, 17 + t.count);
+  o.push_back((uint8_t)index);
+  o.insert(o.end(), t.bits, t.bits + 16);
+  o.insert(o.end(), t.vals, t.vals + t.count);
+}
+
+// libjpeg-turbo's default compression as cv2.imencode('.jpg') runs it:
+// [h, w, 3] BGR (YCbCr 4:2:0) or [h, w] gray, baseline, standard Huffman
+// tables, no restart interval
+void encode_jpeg(const uint8_t* img, int h, int w, int channels, int quality,
+                 std::vector<uint8_t>& o) {
+  const bool color = channels == 3;
+  const int ncomp = color ? 3 : 1;
+  const int ms = color ? 16 : 8;  // MCU size in image pixels
+  const int mcux = (w + ms - 1) / ms, mcuy = (h + ms - 1) / ms;
+  const int ybw = (w + 7) / 8, ybh = (h + 7) / 8;  // Y blocks holding image data
+
+  // planes at the MCU grid: Y edge-replicated (jcprepct.c / jcsample.c
+  // expand_*_edge); Cb / Cr by h2v2_downsample of the edge-replicated
+  // full-size planes (bias 1, 2, 1, 2, ...), their rows past the image's
+  // last copied from it
+  const int ys = mcux * ms, yr = mcuy * ms;
+  std::vector<uint8_t> yp((size_t)ys * yr), cbp, crp;
+  std::vector<uint8_t> cbf, crf;  // full-size chroma, w x h
+  if (color) {
+    // jccolor.c rgb_ycc_start / rgb_ycc_convert: SCALEBITS 16
+    const int32_t one_half = 1 << 15, cbcr_off = 128 << 16;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    int32_t ry[256], gy[256], by[256], rcb[256], gcb[256], bcb[256], gcr[256], bcr[256];
+    for (int i = 0; i < 256; ++i) {
+      ry[i] = fix(0.29900) * i;
+      gy[i] = fix(0.58700) * i;
+      by[i] = fix(0.11400) * i + one_half;
+      rcb[i] = -fix(0.16874) * i;
+      gcb[i] = -fix(0.33126) * i;
+      bcb[i] = fix(0.5) * i + cbcr_off + one_half - 1;  // also R => Cr
+      gcr[i] = -fix(0.41869) * i;
+      bcr[i] = -fix(0.08131) * i;
+    }
+    cbf.resize((size_t)w * h);
+    crf.resize((size_t)w * h);
+    for (int y = 0; y < h; ++y) {
+      const uint8_t* s = img + (size_t)y * w * 3;
+      uint8_t* yo = yp.data() + (size_t)y * ys;
+      uint8_t* cbo = cbf.data() + (size_t)y * w;
+      uint8_t* cro = crf.data() + (size_t)y * w;
+      for (int x = 0; x < w; ++x) {
+        const int b = s[3 * x], g = s[3 * x + 1], r = s[3 * x + 2];
+        yo[x] = (uint8_t)((ry[r] + gy[g] + by[b]) >> 16);
+        cbo[x] = (uint8_t)((rcb[r] + gcb[g] + bcb[b]) >> 16);
+        cro[x] = (uint8_t)((bcb[r] + gcr[g] + bcr[b]) >> 16);
+      }
+    }
+  } else {
+    for (int y = 0; y < h; ++y) std::memcpy(yp.data() + (size_t)y * ys, img + (size_t)y * w, w);
+  }
+  for (int y = 0; y < yr; ++y) {
+    uint8_t* row = yp.data() + (size_t)y * ys;
+    if (y >= h) std::memcpy(row, yp.data() + (size_t)(h - 1) * ys, w);
+    std::memset(row + w, row[w - 1], ys - w);
+  }
+  const int cs = mcux * 8, cr = mcuy * 8;  // chroma plane size
+  if (color) {
+    cbp.resize((size_t)cs * cr);
+    crp.resize((size_t)cs * cr);
+    const int rows = (h + 1) / 2;
+    for (int k = 0; k < cr; ++k) {
+      uint8_t* ob = cbp.data() + (size_t)k * cs;
+      uint8_t* oc = crp.data() + (size_t)k * cs;
+      if (k >= rows) {
+        std::memcpy(ob, cbp.data() + (size_t)(rows - 1) * cs, cs);
+        std::memcpy(oc, crp.data() + (size_t)(rows - 1) * cs, cs);
+        continue;
+      }
+      const int r0 = 2 * k, r1 = std::min(2 * k + 1, h - 1);
+      for (int pl = 0; pl < 2; ++pl) {
+        const uint8_t* f = pl ? crf.data() : cbf.data();
+        uint8_t* out = pl ? oc : ob;
+        const uint8_t* a = f + (size_t)r0 * w;
+        const uint8_t* b = f + (size_t)r1 * w;
+        int bias = 1;
+        for (int j = 0; j < cs; ++j) {
+          const int x0 = std::min(2 * j, w - 1), x1 = std::min(2 * j + 1, w - 1);
+          out[j] = (uint8_t)((a[x0] + a[x1] + b[x0] + b[x1] + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+  }
+
+  uint16_t qlum[64], qchrom[64];
+  scaled_quant(kStdLumQuant, quality, qlum);
+  scaled_quant(kStdChromQuant, quality, qchrom);
+  const HuffEnc dc0(kDcLumBits, kDcVals), ac0(kAcLumBits, kAcLumVals);
+  const HuffEnc dc1(kDcChromBits, kDcVals), ac1(kAcChromBits, kAcChromVals);
+
+  // jcmarker.c: SOI, JFIF 1.01 APP0 (no units, density 1:1), DQT per
+  // table, SOF0, DHT DC0 AC0 (DC1 AC1), SOS
+  const uint8_t app0[16] = {0xFF, 0xD8, 0xFF, 0xE0, 0, 16, 'J', 'F',
+                            'I',  'F',  0,    1,    1, 0,  0, 1};
+  o.insert(o.end(), app0, app0 + 16);
+  put16(o, 1);
+  o.push_back(0);
+  o.push_back(0);
+  write_dqt(o, 0, qlum);
+  if (color) write_dqt(o, 1, qchrom);
+  marker(o, 0xC0, 6 + 3 * ncomp);
+  o.push_back(8);
+  put16(o, h);
+  put16(o, w);
+  o.push_back((uint8_t)ncomp);
+  for (int c = 0; c < ncomp; ++c) {
+    o.push_back((uint8_t)(c + 1));
+    o.push_back(color && c == 0 ? 0x22 : 0x11);
+    o.push_back(c ? 1 : 0);
+  }
+  write_dht(o, 0x00, dc0);
+  write_dht(o, 0x10, ac0);
+  if (color) {
+    write_dht(o, 0x01, dc1);
+    write_dht(o, 0x11, ac1);
+  }
+  marker(o, 0xDA, 4 + 2 * ncomp);
+  o.push_back((uint8_t)ncomp);
+  for (int c = 0; c < ncomp; ++c) {
+    o.push_back((uint8_t)(c + 1));
+    o.push_back(c ? 0x11 : 0x00);
+  }
+  o.push_back(0);
+  o.push_back(63);
+  o.push_back(0);
+
+  // jccoefct.c compress_data: blocks in MCU order; a Y block past the
+  // image's blocks is a dummy (zero AC, the DC of the block before it in
+  // the MCU)
+  BitWriter bw(o);
+  int last_dc[3] = {0, 0, 0};
+  int16_t blk[4][64], cb[64], crb[64];
+  const int nb = color ? 2 : 1;
+  for (int my = 0; my < mcuy; ++my) {
+    for (int mx = 0; mx < mcux; ++mx) {
+      for (int by = 0; by < nb; ++by) {
+        for (int bx = 0; bx < nb; ++bx) {
+          const int i = by * nb + bx;
+          const int gy = my * nb + by, gx = mx * nb + bx;
+          if (gy < ybh && gx < ybw) {
+            forward_block(yp.data() + (size_t)gy * 8 * ys + (size_t)gx * 8, ys, qlum, blk[i]);
+          } else {
+            std::memset(blk[i], 0, sizeof blk[i]);
+            blk[i][0] = blk[i - 1][0];  // i > 0: block 0 of an MCU always holds data
+          }
+        }
+      }
+      for (int i = 0; i < nb * nb; ++i) encode_block(bw, blk[i], last_dc[0], dc0, ac0);
+      if (color) {
+        const size_t off = (size_t)my * 8 * cs + (size_t)mx * 8;
+        forward_block(cbp.data() + off, cs, qchrom, cb);
+        forward_block(crp.data() + off, cs, qchrom, crb);
+        encode_block(bw, cb, last_dc[1], dc1, ac1);
+        encode_block(bw, crb, last_dc[2], dc1, ac1);
+      }
+    }
+  }
+  bw.flush();
+  o.push_back(0xFF);
+  o.push_back(0xD9);
+}
+
+// ------------------------------------------------------------ PNG pixels
+
+int png_channels(int color_type) {
+  switch (color_type) {
+    case 0: return 1;  // gray
+    case 2: return 3;  // RGB
+    case 3: return 1;  // palette index
+    case 4: return 2;  // gray, alpha
+    case 6: return 4;  // RGBA
+    default: fail("bad PNG colour type " + std::to_string(color_type));
+  }
+}
+
+// One pass of the image data: its first pixel, its steps, its size in
+// pixels and its bytes a row (the whole image when not interlaced)
+struct PngPass {
+  int x0, y0, dx, dy, pw, ph;
+  size_t row_bytes;
+};
+
+// The passes that hold pixels (an empty Adam7 pass has no filter bytes)
+std::vector<PngPass> png_passes(int w, int h, int bpp, bool interlaced) {
+  static const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                                   {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+  static const int kWhole[1][4] = {{0, 0, 1, 1}};
+  const int (*grid)[4] = interlaced ? kAdam7 : kWhole;
+  std::vector<PngPass> out;
+  for (int p = 0; p < (interlaced ? 7 : 1); ++p) {
+    const int x0 = grid[p][0], y0 = grid[p][1], dx = grid[p][2], dy = grid[p][3];
+    const int pw = w > x0 ? (w - x0 + dx - 1) / dx : 0;
+    const int ph = h > y0 ? (h - y0 + dy - 1) / dy : 0;
+    if (pw && ph) out.push_back({x0, y0, dx, dy, pw, ph, ((size_t)pw * bpp + 7) / 8});
+  }
+  return out;
+}
+
+// The inflated IDAT stream of a PNG -> [h, w, 3] BGR as libpng reads it
+// for cv2.imread(path, IMREAD_COLOR): filters 0-4 undone per row, Adam7
+// passes placed, 16-bit samples cut to their high byte (png_set_strip_16),
+// 1/2/4-bit gray scaled to 0..255 (png_set_expand_gray_1_2_4_to_8), gray
+// replicated, the palette looked up (an index past it reads black, as
+// libpng's zeroed 256-entry palette does), alpha dropped, RGB -> BGR.
+void png_to_bgr(const uint8_t* data, size_t n, int w, int h, int depth, int color_type,
+                bool interlaced, const uint8_t* palette, uint8_t* out) {
+  const int channels = png_channels(color_type);
+  const int bpp = channels * depth;     // bits per pixel
+  const int fb = std::max(1, bpp / 8);  // the filters' byte distance
+  const int gray_scale = depth == 1 ? 255 : depth == 2 ? 0x55 : depth == 4 ? 0x11 : 1;
+  size_t pos = 0;
+  std::vector<uint8_t> prev, cur;
+  for (const PngPass& pass : png_passes(w, h, bpp, interlaced)) {
+    const int x0 = pass.x0, y0 = pass.y0, dx = pass.dx, dy = pass.dy;
+    const int pw = pass.pw, ph = pass.ph;
+    const size_t rb = pass.row_bytes;
+    prev.assign(rb, 0);
+    cur.resize(rb);
+    for (int r = 0; r < ph; ++r) {
+      if (n - pos < rb + 1) fail("PNG image data too short (truncated IDAT stream)");
+      const int ft = data[pos];
+      const uint8_t* s = data + pos + 1;
+      pos += rb + 1;
+      uint8_t* c = cur.data();
+      const uint8_t* u = prev.data();
+      switch (ft) {
+        case 0:
+          std::memcpy(c, s, rb);
+          break;
+        case 1:
+          for (size_t i = 0; i < rb; ++i) c[i] = (uint8_t)(s[i] + (i >= (size_t)fb ? c[i - fb] : 0));
+          break;
+        case 2:
+          for (size_t i = 0; i < rb; ++i) c[i] = (uint8_t)(s[i] + u[i]);
+          break;
+        case 3:
+          for (size_t i = 0; i < rb; ++i)
+            c[i] = (uint8_t)(s[i] + (((i >= (size_t)fb ? c[i - fb] : 0) + u[i]) >> 1));
+          break;
+        case 4:
+          for (size_t i = 0; i < rb; ++i) {
+            const int a = i >= (size_t)fb ? c[i - fb] : 0, b = u[i];
+            const int cc = i >= (size_t)fb ? u[i - fb] : 0;
+            const int pa = std::abs(b - cc), pb = std::abs(a - cc), pc = std::abs(a + b - 2 * cc);
+            const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : cc);
+            c[i] = (uint8_t)(s[i] + pred);
+          }
+          break;
+        default:
+          fail("bad PNG filter type " + std::to_string(ft));
+      }
+      uint8_t* orow = out + ((size_t)(y0 + r * dy) * w) * 3;
+      for (int i = 0; i < pw; ++i) {
+        uint8_t* o = orow + (size_t)(x0 + i * dx) * 3;
+        if (depth < 8) {  // gray or palette index, packed from the high bits
+          const int bit = i * depth;
+          const int v = (c[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
+          if (color_type == 3) {
+            o[0] = palette[3 * v + 2];
+            o[1] = palette[3 * v + 1];
+            o[2] = palette[3 * v];
+          } else {
+            o[0] = o[1] = o[2] = (uint8_t)(v * gray_scale);
+          }
+          continue;
+        }
+        const uint8_t* px = c + (size_t)i * channels * (depth / 8);  // high byte first
+        const int step = depth / 8;
+        if (color_type == 3) {
+          o[0] = palette[3 * px[0] + 2];
+          o[1] = palette[3 * px[0] + 1];
+          o[2] = palette[3 * px[0]];
+        } else if (channels <= 2) {
+          o[0] = o[1] = o[2] = px[0];
+        } else {
+          o[0] = px[2 * step];
+          o[1] = px[step];
+          o[2] = px[0];
+        }
+      }
+      std::swap(prev, cur);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -959,6 +1434,69 @@ void resize_linear_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, uint8
   }
   if (c == 3) interpolate<3>(src, h, w, c, dst, oh, ow);
   else interpolate<0>(src, h, w, c, dst, oh, ow);
+}
+
+// cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, quality]) of a [h, w, 3]
+// BGR (channels 3) or [h, w] gray (channels 1) uint8 image: returns the
+// file's size, its bytes in `out` when that size is at most `cap` (else
+// nothing is written, and the caller calls again with that capacity); -1
+// with `err` set for an image it cannot write.
+int64_t jpeg_encode(const uint8_t* img, int64_t h, int64_t w, int64_t channels, int64_t quality,
+                    uint8_t* out, int64_t cap, char* err, int64_t errlen) {
+  try {
+    if (h < 1 || w < 1 || h > 65535 || w > 65535)
+      fail("JPEG size " + std::to_string(h) + "x" + std::to_string(w) +
+           " is outside 1..65535");
+    if (channels != 1 && channels != 3)
+      fail(std::to_string(channels) + "-channel image (JPEG takes 1 or 3)");
+    std::vector<uint8_t> o;
+    o.reserve(1024 + (size_t)(h * w * channels) / 4);
+    encode_jpeg(img, (int)h, (int)w, (int)channels, (int)quality, o);
+    if ((int64_t)o.size() <= cap) std::memcpy(out, o.data(), o.size());
+    return (int64_t)o.size();
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return -1;
+  }
+}
+
+// The Orientation tag (0x0112) of IFD0 of TIFF-structured Exif data (a
+// PNG's eXIf chunk), 0 if none.
+int exif_orientation_tag(const uint8_t* data, int64_t n) {
+  return exif_orientation(data, (size_t)n);
+}
+
+// Bytes of a PNG's inflated image data (each row of each pass and its
+// filter byte), or -1 with `err` set for a colour type that does not exist.
+int64_t png_data_size(int64_t h, int64_t w, int64_t depth, int64_t color_type,
+                      int64_t interlaced, char* err, int64_t errlen) {
+  try {
+    int64_t total = 0;
+    const int bpp = png_channels((int)color_type) * (int)depth;
+    for (const PngPass& pass : png_passes((int)w, (int)h, bpp, interlaced != 0))
+      total += (int64_t)pass.ph * (int64_t)(pass.row_bytes + 1);
+    return total;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return -1;
+  }
+}
+
+// The inflated IDAT stream (n bytes) of a PNG whose IHDR the caller read ->
+// [h, w, 3] BGR uint8 in `out`, as cv2.imread(path, IMREAD_COLOR); palette
+// holds 256 RGB entries, those past the PLTE chunk zero. Returns 0, or -1
+// with `err` set.
+int png_decode(const uint8_t* data, int64_t n, int64_t h, int64_t w, int64_t depth,
+               int64_t color_type, int64_t interlaced, const uint8_t* palette, uint8_t* out,
+               char* err, int64_t errlen) {
+  try {
+    png_to_bgr(data, (size_t)n, (int)w, (int)h, (int)depth, (int)color_type, interlaced != 0,
+               palette, out);
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return -1;
+  }
 }
 
 }  // extern "C"

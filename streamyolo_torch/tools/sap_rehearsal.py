@@ -11,8 +11,9 @@ without a live 30 fps feed. Stages (each a function below, which
 ``chip_smoke.py`` also calls):
 
   1. dataset: an Argoverse-HD layout (``--data-root`` / ``--annot-path``) or
-     the synthetic one (``data/dbcode.py``), written as JPEGs or, with
-     ``--in-memory``, rendered on demand (no cv2 needed);
+     the synthetic one (``data/dbcode.py``), written as JPEGs under
+     ``<out>/fixture`` and read back from them, or, with ``--in-memory``,
+     rendered on demand; neither needs cv2;
   2. latency: ``--latency-ms`` samples, a ``--zoo`` entry, ``--measure N``
      (wall time of N detector calls, frame in -> rows on the host) or
      ``--measure-chain N`` (CUDA events around 50 chained device steps, N
@@ -70,7 +71,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--frame-size", type=int, nargs=2, default=(300, 480),
                    metavar=("H", "W"), help="synthetic frame size")
     p.add_argument("--in-memory", action="store_true", default=False,
-                   help="keep the synthetic fixture in memory (no JPEGs, no cv2)")
+                   help="keep the synthetic fixture in memory (render each frame "
+                        "on demand; no JPEGs written or read)")
     p.add_argument("--seed", type=int, default=0)
     # latency source
     p.add_argument("--latency-ms", type=str, default=None,

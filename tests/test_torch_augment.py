@@ -53,12 +53,9 @@ GREY = (114, 114, 114)
 
 
 def png_dataset(cls, root):
-    """A port dataset over the golden fixture, whose frames are PNGs: the
-    port reads baseline JPEG only, so the frames are read here with cv2 and
-    handed over through ``load_frame`` (the mosaic path is under test)."""
-    ds = cls(root, "train.json", img_size=_IMG_SIZE)
-    ds.load_frame = lambda im_ann: cv2.imread(ds._file_name(im_ann))
-    return ds
+    """A port dataset over the golden fixture, whose frames are PNGs that
+    cv2 wrote, read by the port's own reader (``data/image_io.py``)."""
+    return cls(root, "train.json", img_size=_IMG_SIZE)
 
 
 def port_golden_arrays(root):

@@ -48,6 +48,7 @@ from streamyolo_torch.data import datasets as tdatasets
 from streamyolo_torch.data.image_io import image_size, imdecode, imread
 from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
 from streamyolo_torch.stream import CUDAStreamDetector
+from tests.torch_png import chunk
 
 cv2 = pytest.importorskip("cv2")
 
@@ -152,16 +153,22 @@ def test_exif_orientation_as_cv2(tmp_path, orientation):
         assert image_size(path) == want.shape[:2]
 
 
+def apng(png: bytes) -> bytes:
+    """``png`` with an acTL chunk after its IHDR: an animated PNG."""
+    return png[:33] + chunk(b"acTL", struct.pack(">II", 1, 0)) + png[33:]
+
+
 @pytest.mark.parametrize("case", ["progressive", "png", "truncated", "empty"])
 def test_refusals_name_what_they_refuse(tmp_path, case):
-    """Outside the baseline decoder, or corrupt: ``OSError`` with a reason
-    (and, from ``imread``, the path). Truncated entropy-coded data raises
+    """Outside the decoders (a progressive JPEG, an animated PNG), or
+    corrupt: ``OSError`` with a reason (and, from ``imread``, the path).
+    Truncated entropy-coded data raises
     where libjpeg would warn and fill with zeros (a deliberate divergence;
     cv2 5.0 returns None for it)."""
     img = textured(np.random.default_rng(0), 64, 80)
     data, reason = {
         "progressive": (encode(img, progressive=1), "progressive JPEG"),
-        "png": (cv2.imencode(".png", img)[1].tobytes(), "PNG"),
+        "png": (apng(cv2.imencode(".png", img)[1].tobytes()), "animated PNG"),
         "truncated": (encode(img)[:900], "premature end"),
         "empty": (b"", "empty file"),
     }[case]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Writes the JPEG fixtures that ``tests/test_torch_image_io.py`` and
-``chip_smoke.py``'s phase ``image_io`` read, and cv2's digests of them:
+"""Writes the JPEG and PNG fixtures that ``tests/test_torch_image_io.py``,
+``tests/test_torch_image_write.py`` and ``chip_smoke.py``'s phases
+``image_io`` and ``from_disk`` read, and cv2's digests of them:
 
   * ``frames/seq00/00000{0,1,2}.jpg``: frames 0-2 of sequence ``seq00`` of
     the JAX package's ``make_synthetic_argoverse`` at 1200x1920, seed 0
@@ -8,9 +9,17 @@
   * ``small/*.jpg``: crops of frame 0 written by cv2 in each sampling
     factor, grayscale, with a restart interval, with optimised Huffman
     tables, with an Exif orientation and without its DHT segments;
-  * ``digests.json``: the sha256 and shape of ``cv2.imread`` of every file,
-    and of ``cv2.resize`` (``INTER_LINEAR``) of each frame to 600x960 and
-    601x959.
+  * ``png/*.png``: crops of frame 0 written by cv2 (BGR, BGRA 16-bit, gray)
+    and PNGs built chunk by chunk (``tests/torch_png.py``: a 4-bit palette
+    with tRNS and Adam7, 2-bit gray with every filter type, 16-bit RGB with
+    Adam7, an eXIf orientation);
+  * ``digests.json``: the sha256 and shape of ``cv2.imread`` of every JPEG
+    (``decode``) and PNG (``png``), of ``cv2.resize`` (``INTER_LINEAR``) of each frame to
+    600x960 and 601x959 (``resize``), the sha256 of ``cv2.imencode('.jpg')``
+    of each frame at quality 90 and 95 (``encode``), and of each file of
+    the JAX package's ``make_synthetic_argoverse`` at 2 x 11 frames of
+    1200x1920, seed 0 (``from_disk``: what ``chip_smoke.py``'s phase
+    ``from_disk`` writes with the port).
 
     JAX_PLATFORMS=cpu python tests/torch_jpeg/make_fixtures.py
 
@@ -31,6 +40,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 RESIZES = ((600, 960), (601, 959))
+ENCODE_QUALITIES = (90, 95)
+FROM_DISK = dict(seq_lens=(11, 11), size=(1200, 1920), seed=0)
 SAMPLINGS = {"s411": 0x411111, "s420": 0x221111, "s422": 0x211111, "s440": 0x121111,
              "s444": 0x111111}
 
@@ -68,10 +79,12 @@ def main() -> None:
 
     sys.path.insert(0, str(HERE.parents[1]))
     from streamyolo_tpu.data.dbcode import make_synthetic_argoverse
+    from tests.torch_png import chunk, exif, png_file
 
     frames_dir = HERE / "frames" / "seq00"
     small_dir = HERE / "small"
-    for d in (frames_dir, small_dir):
+    png_dir = HERE / "png"
+    for d in (frames_dir, small_dir, png_dir):
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -98,18 +111,53 @@ def main() -> None:
     (small_dir / "exif6_37x53.jpg").write_bytes(with_orientation(plain, 6))
     (small_dir / "no_dht_37x53.jpg").write_bytes(without_dht(plain))
 
-    decode, resize = {}, {}
-    for path in sorted(HERE.glob("*/**/*.jpg")):
+    small = crop[:37, :53]
+    wide = small.astype(np.uint16) * 257
+    alpha = np.full((37, 53, 1), 40000, np.uint16)
+    pngs = {"bgr_c9_37x53.png": (small, 9), "bgra16_c1_37x53.png": (
+        np.concatenate([wide, alpha], -1), 1), "gray_c0_17x9.png": (small[:17, :9, 1], 0)}
+    for name, (img, level) in pngs.items():
+        ok, buf = cv2.imencode(".png", img, [cv2.IMWRITE_PNG_COMPRESSION, level])
+        assert ok, name
+        (png_dir / name).write_bytes(buf.tobytes())
+    rng = np.random.default_rng(0)
+    rgb = small[..., ::-1].astype(np.int64)
+    (png_dir / "palette4_trns_adam7_37x53.png").write_bytes(png_file(
+        rgb[..., :1] // 16, 4, 3, interlace=True, filters=(0, 1, 2, 3, 4),
+        palette=rng.integers(0, 256, 48, np.uint8).tobytes(), trns=bytes(range(0, 160, 20))))
+    (png_dir / "gray2_filters_37x53.png").write_bytes(png_file(
+        rgb[..., 1:2] // 64, 2, 0, filters=(0, 1, 2, 3, 4)))
+    (png_dir / "rgb16_adam7_17x9.png").write_bytes(png_file(
+        rgb[:17, :9] * 257 + 128, 16, 2, interlace=True, filters=(4, 3, 1)))
+    (png_dir / "exif6_17x9.png").write_bytes(png_file(
+        rgb[:17, :9], 8, 2, filters=(4,), before=[chunk(b"eXIf", exif(6))]))
+
+    decode, resize, encode, png = {}, {}, {}, {}
+    for path in sorted([*HERE.glob("*/**/*.jpg"), *HERE.glob("png/*.png")]):
         rel = path.relative_to(HERE).as_posix()
         img = cv2.imread(str(path))
         assert img is not None, rel
-        decode[rel] = digest(img)
+        (png if rel.endswith(".png") else decode)[rel] = digest(img)
         if rel.startswith("frames/"):
             resize[rel] = {f"{h}x{w}": digest(cv2.resize(img, (w, h),
                                                           interpolation=cv2.INTER_LINEAR))
                            for h, w in RESIZES}
+            encode[rel] = {}
+            for q in ENCODE_QUALITIES:
+                ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])
+                assert ok, rel
+                encode[rel][f"q{q}"] = {"size": len(buf),
+                                        "sha256": hashlib.sha256(buf.tobytes()).hexdigest()}
+    from_disk = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_argoverse(tmp, **FROM_DISK)
+        for path in sorted(Path(tmp).rglob("*.jpg")):
+            from_disk[path.relative_to(tmp).as_posix()] = hashlib.sha256(
+                path.read_bytes()).hexdigest()
     with open(HERE / "digests.json", "w") as f:
-        json.dump({"cv2": cv2.__version__, "decode": decode, "resize": resize}, f, indent=1)
+        json.dump({"cv2": cv2.__version__, "decode": decode, "resize": resize, "png": png,
+                   "encode": encode, "from_disk": {"params": FROM_DISK, "sha256": from_disk}},
+                  f, indent=1)
         f.write("\n")
 
 
