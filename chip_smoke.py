@@ -10,10 +10,12 @@ decode of the card against the CPU's, serves StreamYOLO-l at 600x960
 through ``CUDAStreamDetector`` (host path and ``device_preproc``) with
 random weights from a seed, checks the outputs (the card's fp32 step against
 the CPU, bf16 against fp32), reads frames from disk without cv2 (phase
-``image_io``: ``tests/torch_jpeg``'s JPEGs and PNGs decoded and the JPEGs
-resized and encoded by the port's native code against cv2's digests, the
-host path against ``device_preproc`` bit for bit, ``stream_det`` and
-``offline_det`` reading the frames from disk), and times the step and each kernel with CUDA
+``image_io``: ``tests/torch_jpeg``'s JPEGs (baseline, progressive and
+multi-scan) and PNGs decoded and the JPEGs resized and encoded by the
+port's native code against cv2's digests, the host path against
+``device_preproc`` bit for bit, ``stream_det`` and ``offline_det`` reading
+the frames from disk, ``offline_det`` from the progressive frames with the
+baseline frames' rows), and times the step and each kernel with CUDA
 events, one call at a time and back to back. Then it serves 8 camera streams
 through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
 per-stream restart, fp32 rows against ``CUDAStreamDetector``), times the
@@ -3038,22 +3040,27 @@ def image_digest(arr) -> dict:
     return {"shape": list(arr.shape), "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
 
 
-def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
+def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     """Frames from disk on the card's host, which has no cv2
     (``data/image_io.py`` over ``native/image_io.cpp``, ``resize_u8``):
     every committed fixture of ``tests/torch_jpeg`` decodes, and each
     1200x1920 frame resizes to 600x960 and 601x959, to the bytes whose
-    digests cv2 wrote there; the decode and resize times (median of
-    ``IMAGE_IO_TIMED``, the NumPy twin once); StreamYOLO-l at 600x960, bf16,
+    digests cv2 wrote there (the progressive and multi-scan fixtures of
+    ``progressive/`` included; its three progressive frames to the
+    baseline frames' digests); the decode and resize times (median of
+    ``IMAGE_IO_TIMED``, the NumPy twin once; a progressive frame's decode
+    beside the baseline frame's); StreamYOLO-l at 600x960, bf16,
     the seeded weights of ``EVAL_CONFIG``, over the three frames (a star and
     two steady): ``CUDAStreamDetector``'s host path against
     ``device_preproc`` rows bit for bit, ``MultiStreamDetector(3)`` fed the
     raw frames against its feed of ``resize_u8_reference`` frames; then the
     frames as one sequence from disk (``db_from_img_folder``) through
     ``stream_det`` under the wall clock and with ``--infinite``, and
-    ``offline_det``, host path, no ``load_frame``. Kernel launches are
-    counted from 0 before each run and read after it. ``device="cpu"``
-    rehearses the phase without a card."""
+    ``offline_det``, host path, no ``load_frame``, and ``offline_det`` again
+    from the folder of progressive frames, whose rows must equal the
+    baseline folder's bit for bit. Kernel launches are counted from 0 before
+    each run and read after it. ``device="cpu"`` rehearses the phase
+    without a card."""
     import torch
 
     from streamyolo_torch.data import db_from_img_folder
@@ -3082,6 +3089,12 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
                       f"image_io: resize of {rel} to {key} differs from cv2's")
     raws = [frames[k] for k in sorted(frames)]
     check(len(raws) == 3, f"image_io: {len(raws)} full-size frames in the fixtures")
+    progressive = sorted(rel for rel in digests["decode"] if rel.startswith("progressive/"))
+    prog_frames = [rel for rel in progressive if rel.startswith("progressive/frames/")]
+    check(len(prog_frames) == 3 and all(
+        digests["decode"][rel] == digests["decode"][rel[len("progressive/"):]]
+        for rel in prog_frames),
+        "image_io: the progressive frames' digests are not the baseline frames'")
     # the encoder: each frame at quality 90 and 95 to cv2.imencode's bytes
     for rel, by_quality in sorted(digests["encode"].items()):
         for key, want in by_quality.items():
@@ -3096,8 +3109,11 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
               f"image_io: {rel} decodes to other bytes or size than cv2's")
     first = sorted(frames)[0]
     data = (JPEG_FIXTURES / first).read_bytes()
+    prog_data = (JPEG_FIXTURES / prog_frames[0]).read_bytes()
     times = {"decode_ms": host_ms(lambda: imdecode(data)),
              "imread_ms": host_ms(lambda: imread(JPEG_FIXTURES / first)),
+             "progressive_decode_ms": host_ms(lambda: imdecode(prog_data)),
+             "progressive_imread_ms": host_ms(lambda: imread(JPEG_FIXTURES / prog_frames[0])),
              **{f"resize_{h}x{w}_ms": host_ms(lambda: resize_u8(raws[0], h, w))
                 for h, w in IMAGE_IO_SIZES}}
     t = time.perf_counter()
@@ -3180,6 +3196,16 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
     add_to_runtime_zoo(str(out_dir / "wall" / "time_info.pkl"), zoo, "wall")
     inf = cli("infinite", stream_det, "--sim-zoo", zoo, "--sim-name", "wall", "--infinite")
     off = cli("offline_det", offline_det, "--no-eval")
+    prog_root = JPEG_FIXTURES / "progressive" / "frames"
+    prog_annot = out_dir / "progressive_frames.json"
+    check(db_from_img_folder(str(prog_root), out_path=str(prog_annot))["images"] == db["images"],
+          "image_io: db_from_img_folder of the progressive frames differs from the baseline's")
+    off_prog = cli("offline_det_progressive", offline_det, "--no-eval",
+                   "--data-root", str(prog_root), "--annot-path", str(prog_annot))
+    check(off_prog["results_ccf"] == off["results_ccf"]
+          and launches["offline_det_progressive"] == {"nms": k, "preproc": 0},
+          "image_io: offline_det from the progressive frames: rows differ from the baseline "
+          f"folder's, or launches {launches['offline_det_progressive']}")
     wall = run_summary(out_dir / "wall", 1)
     check(wall["processed"] >= 1 and launches["wall"]["preproc"] == 0,
           f"image_io: stream_det from disk: {wall}, launches {launches['wall']}")
@@ -3195,13 +3221,18 @@ def phase_image_io(out_dir: Path, device: str = "cuda") -> dict:
     cv2_loaded = sys.modules.get("cv2") is not None
     check(not cv2_loaded, "image_io: cv2 was imported")
     emit("image_io", fixtures=len(digests["decode"]), png_fixtures=len(digests["png"]),
+         progressive_fixtures=len(progressive),
          encodes=sum(len(v) for v in digests["encode"].values()), digests_equal=True,
-         frame="1200x1920 baseline 4:2:0 q90 (the JAX generator's)", times=times,
+         progressive_frames_equal_baseline=True,
+         frame="1200x1920 baseline 4:2:0 q90 (the JAX generator's)",
+         progressive_frame="the same pixels, cv2's progressive script at q90",
+         times=times, nvidia_smi=smi,
          model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
          host_rows_equal_device_preproc=True, multi_stream_raw_equal_preprocessed=True,
          kept_rows=kept, stream_det_wall=wall,
          infinite_results=len(inf["seq00"]["timestamps"]),
-         offline_detections=len(off["results_ccf"]), cli_s=cli_s, launches=launches,
+         offline_detections=len(off["results_ccf"]),
+         offline_det_progressive_rows_equal=True, cli_s=cli_s, launches=launches,
          cv2_loaded=cv2_loaded, seconds=time.perf_counter() - t_phase)
     return launches
 
@@ -3410,7 +3441,7 @@ def main(only: str = None) -> int:
         phase_trained_e2e(Path(__file__).resolve().parent / "build" / "chip_smoke_trained")
         return 0
     if only == "image_io":
-        phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io")
+        phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io", smi)
         return 0
     if only == "from_disk":
         phase_from_disk(Path(__file__).resolve().parent / "build" / "chip_smoke_from_disk", smi)
@@ -3585,7 +3616,8 @@ def main(only: str = None) -> int:
 
     # 5c. frames from disk without cv2: the fixtures against cv2's digests,
     # the host path against device_preproc, stream_det / offline_det from disk
-    image_io = phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io")
+    image_io = phase_image_io(Path(__file__).resolve().parent / "build" / "chip_smoke_image_io",
+                              smi)
 
     # 6. times (CUDA events, median of >= 50 after warmup)
     img_host = torch.from_numpy(frames[0]).to(dev)[None]

@@ -2,30 +2,43 @@
 package's ``cv2.imread`` / ``cv2.imwrite``, for a host (the card's) that has
 no cv2, PIL or torchvision.
 
-  * ``imdecode(buf)``: baseline JPEG or PNG bytes -> [H, W, 3] BGR uint8,
-    equal bit for bit to ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``;
+  * ``imdecode(buf)``: JPEG (baseline, extended sequential, progressive,
+    one scan or several) or PNG bytes -> [H, W, 3] BGR uint8, equal bit for
+    bit to ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``;
   * ``imread(path)``: the file's bytes through ``imdecode``, equal to
     ``cv2.imread(path)``;
   * ``image_size(path)``: (height, width) of what ``imread`` returns, from
     the headers alone;
-  * ``imencode(img, quality)``: [H, W, 3] BGR or [H, W] gray uint8 -> the
-    bytes of ``cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, quality])``,
-    byte for byte;
+  * ``imencode(img, fmt)``: [H, W, 3] BGR or [H, W] gray uint8 -> the
+    bytes of ``cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, fmt])``,
+    byte for byte, for a quality ``fmt``; a PNG for ``fmt=".png"``;
   * ``imwrite(path, img, quality)``: those bytes to a ``.jpg`` / ``.jpeg``
-    file (PNG writing is not supported).
+    or ``.png`` file.
 
 The codecs are native (``native/image_io.cpp``, built with ``g++`` at first
 use). The JPEG decoder transcribes libjpeg-turbo's default decompression, as
 cv2 runs it (the islow IDCT, fancy upsampling, its YCbCr -> RGB tables); it
-reads baseline and extended-sequential Huffman files with one scan of 1 or 3
-components at 8 bits, any integral sampling factors, restart intervals and
-files without a DHT (libjpeg's standard tables). Anything else
-(progressive, lossless, arithmetic, 12-bit, CMYK, an RGB-coded file,
-multiple scans) raises ``OSError`` naming it. Where libjpeg meets corrupt or
-truncated entropy-coded data it warns, fills the rest with zeros and returns
-an image; ``imdecode`` raises ``OSError`` instead. The encoder transcribes
+reads Huffman-coded files of 1 or 3 components at 8 bits, any integral
+sampling factors, restart intervals and files without a DHT (libjpeg's
+standard tables): baseline and extended sequential (SOF0 / SOF1) with one
+scan or several (a scan of part of the components), and progressive
+(SOF2: spectral selection and successive approximation, libjpeg's block
+smoothing where the last refinement scans are missing). A file read in
+several scans goes through a whole-image coefficient buffer, as in
+libjpeg. Lossless, hierarchical and arithmetic-coded files, 12-bit
+samples, CMYK, an RGB-coded file and scan parameters libjpeg refuses
+raise ``OSError`` naming them. Where libjpeg meets corrupt or truncated
+entropy-coded data it warns, fills the rest with zeros and returns an
+image; ``imdecode`` raises ``OSError`` instead. The encoder transcribes
 libjpeg-turbo's default compression (baseline, 4:2:0 for colour, standard
 Huffman tables, JFIF 1.01).
+
+PNG writing is what cv2's defaults do with libpng: 8-bit RGB or gray, the
+Sub filter on every row (None on rows of one pixel), a ``zlib`` stream at level 1 with the run-length
+strategy (its header's window size cut to the image, as libpng's
+``optimize_cmf`` does), IDAT chunks of 8192 bytes. Where Python's zlib
+deflates as cv2's does (zlib 1.2.13 and cv2 5.0 in the tests), the bytes
+equal ``cv2.imencode('.png')``'s.
 
 A PNG's chunks are parsed here (CRCs checked with ``zlib.crc32``, a bad one
 drops an ancillary chunk as libpng does and refuses the file in a critical
@@ -59,6 +72,7 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _PNG_MAX_SIDE, _PNG_MAX_PIXELS = 1_000_000, 1 << 30  # libpng's and cv2's limits
 _JPEG_EXTENSIONS = (".jpg", ".jpeg")
+_PNG_IDAT_SIZE = 8192  # libpng's compression buffer, the size of each IDAT chunk
 
 
 def _header(buf: bytes):
@@ -241,17 +255,63 @@ def image_size(path) -> Tuple[int, int]:
     return (w, h) if orientation in (5, 6, 7, 8) else (h, w)
 
 
-def imencode(img: np.ndarray, quality: int = 95) -> bytes:
-    """``cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, quality])[1]``
-    as bytes, byte for byte: ``img`` is [H, W, 3] BGR or [H, W] (or
-    [H, W, 1]) gray uint8, ``quality`` an int in 0..100."""
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+
+def _png_encode(img: np.ndarray) -> bytes:
+    """A [H, W, 3] BGR or [H, W] gray uint8 image as an 8-bit RGB or gray
+    PNG, as cv2 writes it by default."""
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else 3
+    rows = (img if channels == 1 else img[..., ::-1]).reshape(h, w * channels)
+    filtered = np.empty((h, 1 + w * channels), np.uint8)
+    # Sub: each byte less the byte one pixel to its left; None (the same
+    # bytes) for rows of one pixel, as libpng writes them
+    filtered[:, 0] = 1 if w > 1 else 0
+    filtered[:, 1:1 + channels] = rows[:, :channels]
+    np.subtract(rows[:, channels:], rows[:, :-channels], out=filtered[:, 1 + channels:])
+    wbits = 15  # png_deflate_claim: a window no larger than the image needs
+    while filtered.size <= 16384 and filtered.size + 262 <= 1 << (wbits - 1) and wbits > 9:
+        wbits -= 1
+    deflate = zlib.compressobj(1, zlib.DEFLATED, wbits, 8, zlib.Z_RLE)
+    data = bytearray(deflate.compress(filtered.tobytes()) + deflate.flush())
+    if filtered.size <= 16384:  # optimize_cmf: the header claims the least window that holds it
+        cinfo = data[0] >> 4
+        while cinfo > 0 and filtered.size <= 1 << (cinfo + 7):
+            cinfo -= 1
+        data[0] = (data[0] & 0x0F) | (cinfo << 4)
+        flags = data[1] & 0xE0
+        data[1] = flags + 0x1F - ((data[0] << 8) + flags) % 0x1F
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if channels == 1 else 2, 0, 0, 0)
+    return b"".join([_PNG_SIGNATURE, _png_chunk(b"IHDR", ihdr),
+                     *(_png_chunk(b"IDAT", bytes(data[i:i + _PNG_IDAT_SIZE]))
+                       for i in range(0, len(data), _PNG_IDAT_SIZE)),
+                     _png_chunk(b"IEND", b"")])
+
+
+def imencode(img: np.ndarray, fmt=95) -> bytes:
+    """``cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, fmt])[1]`` as
+    bytes, byte for byte, for a JPEG quality ``fmt`` (an int in 0..100);
+    ``fmt`` ``".jpg"`` / ``".jpeg"`` is quality 95, ``".png"`` a PNG as
+    cv2 writes it by default. ``img`` is [H, W, 3] BGR or [H, W] (or
+    [H, W, 1]) gray uint8."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"JPEG writes uint8 images, not {img.dtype}")
+        raise ValueError(f"JPEG and PNG write uint8 images, not {img.dtype}")
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
     if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"JPEG writes [H, W, 3] BGR or [H, W] gray images, not {img.shape}")
+        raise ValueError(f"JPEG and PNG write [H, W, 3] BGR or [H, W] gray images, not {img.shape}")
+    quality = fmt
+    if isinstance(fmt, str):
+        if fmt.lower() == ".png":
+            if img.size == 0:
+                raise ValueError(f"PNG size {img.shape[0]}x{img.shape[1]} is empty")
+            return _png_encode(np.ascontiguousarray(img))
+        if fmt.lower() not in _JPEG_EXTENSIONS:
+            raise ValueError(f"imencode writes JPEG (.jpg, .jpeg) and PNG (.png), not '{fmt}'")
+        quality = 95
     if not (isinstance(quality, (int, np.integer)) and 0 <= quality <= 100):
         raise ValueError(f"JPEG quality {quality!r} is not an int in 0..100")
     img = np.ascontiguousarray(img)
@@ -273,12 +333,12 @@ def imencode(img: np.ndarray, quality: int = 95) -> bytes:
 
 def imwrite(path, img: np.ndarray, quality: int = 95) -> None:
     """``cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, quality])`` for a
-    ``.jpg`` / ``.jpeg`` path: the bytes of ``imencode``. Any other
-    extension raises ``ValueError``."""
+    ``.jpg`` / ``.jpeg`` path, ``cv2.imwrite(path, img)`` for ``.png``: the
+    bytes of ``imencode``. Any other extension raises ``ValueError``."""
     path = os.fspath(path)
-    ext = os.path.splitext(path)[1]
-    if ext.lower() not in _JPEG_EXTENSIONS:
-        raise ValueError(f"imwrite writes JPEG (.jpg, .jpeg) only, not '{ext}': {path}")
-    data = imencode(img, quality)
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (*_JPEG_EXTENSIONS, ".png"):
+        raise ValueError(f"imwrite writes JPEG (.jpg, .jpeg) and PNG (.png), not '{ext}': {path}")
+    data = imencode(img, ".png" if ext == ".png" else quality)
     with open(path, "wb") as f:
         f.write(data)

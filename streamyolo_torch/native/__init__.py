@@ -5,7 +5,8 @@
     ``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the
     greedy track association of ``stream/track.py``) and ``bbox_iou_ltwh``;
   * ``streamyolo_torch/native/image_io.cpp``: ``jpeg_header`` /
-    ``jpeg_decode`` (baseline JPEG, bit-exact with ``cv2.imread``),
+    ``jpeg_decode`` (sequential and progressive JPEG, bit-exact with
+    ``cv2.imread``),
     ``jpeg_encode`` (byte-exact with ``cv2.imencode('.jpg')``),
     ``png_data_size`` / ``png_decode`` (a PNG's inflated pixel data, as
     ``cv2.imread`` reads it), ``exif_orientation_tag`` and ``resize_linear_u8`` (``cv2.resize`` with ``INTER_LINEAR``),

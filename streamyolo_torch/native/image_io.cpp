@@ -1,11 +1,18 @@
 // Host image IO of the PyTorch port, with no dependency:
 //
-//   * jpeg_header / jpeg_decode: a baseline (SOF0 / SOF1, 8-bit, Huffman,
-//     one scan) JPEG decoder equal bit for bit to libjpeg-turbo's default
+//   * jpeg_header / jpeg_decode: a JPEG decoder (8-bit, Huffman, 1 or 3
+//     components) equal bit for bit to libjpeg-turbo's default
 //     decompression, which is what cv2.imread(path, IMREAD_COLOR) runs: the
 //     "islow" integer IDCT (jidctint.c), fancy upsampling (jdsample.c), the
-//     YCbCr -> RGB tables of jdcolor.c, written as BGR. The Exif orientation
-//     is returned by jpeg_header and applied by the caller.
+//     YCbCr -> RGB tables of jdcolor.c, written as BGR. A one-scan
+//     sequential file (SOF0 / SOF1) is decoded block by block as it is
+//     read; a progressive one (SOF2) or one whose scans hold part of the
+//     components goes scan by scan through a whole-image coefficient buffer
+//     up to EOI (jdcoefct.c, jdphuff.c, jdhuff.c), then through the IDCT,
+//     block-smoothed where its last refinement scans are missing. Lossless,
+//     hierarchical and arithmetic-coded frames, 12-bit samples, CMYK and
+//     RGB-coded files are refused. The Exif orientation is returned by
+//     jpeg_header and applied by the caller.
 //   * jpeg_encode: libjpeg-turbo's default compression, which is what
 //     cv2.imencode('.jpg') runs, byte for byte: jpeg_set_quality's tables,
 //     the YCbCr tables of jccolor.c, 4:2:0 by jcsample.c's h2v2_downsample,
@@ -40,12 +47,15 @@ struct JpegError : std::runtime_error {
 
 [[noreturn]] void fail(const std::string& msg) { throw JpegError(msg); }
 
-// zigzag index -> natural (row-major) index
-const int kNatural[64] = {
+// zigzag index -> natural (row-major) index; as jutils.c's
+// jpeg_natural_order, 16 entries past the end read 63, so that a corrupt
+// run past the band lands on the last coefficient
+const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 // ------------------------------------------------------------ sample tables
 
@@ -405,15 +415,26 @@ struct Component {
   std::vector<uint8_t> plane;
 };
 
+// One SOS segment: its components (frame indices, in scan order), their
+// Huffman slots, the spectral band and the successive-approximation bits
+struct Scan {
+  int ns = 0;
+  int comp[4] = {0, 0, 0, 0};
+  int td[4] = {0, 0, 0, 0}, ta[4] = {0, 0, 0, 0};
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
 struct Jpeg {
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int orientation = 0;  // Exif tag 0x0112 of the first APP1 Exif segment, 0 if none
   int restart = 0;      // DRI interval in MCUs
   bool have_frame = false, have_quant[4] = {false, false, false, false};
+  bool progressive = false;  // SOF2
   int adobe_transform = -1;
   Component comp[3];
   int16_t quant[4][64];  // natural order; libjpeg keeps them as short
   Huffman dc[4], ac[4];
+  Scan first;                     // the first SOS
   const uint8_t* scan = nullptr;  // first byte of the entropy-coded data
   const uint8_t* end = nullptr;
 };
@@ -515,26 +536,68 @@ void parse_dht(Jpeg& j, const uint8_t* s, int len) {
   }
 }
 
-void parse_sos(Jpeg& j, const uint8_t* s, int len) {
+// jdmarker.c get_sos. A scan's i-th component is matched to the first
+// frame component of its id at index i or later (libjpeg-turbo's guard
+// against repeated ids): a scan that names a component before one that
+// precedes it in the frame is refused, as libjpeg refuses it, unless the
+// later one still finds an index at or past its position.
+void parse_sos(Jpeg& j, const uint8_t* s, int len, Scan& sc) {
   if (!j.have_frame) fail("scan (SOS) before the frame header (SOF)");
   if (len < 1) fail("corrupt JPEG data: short SOS segment");
-  int ns = s[0];
-  if (len < 4 + 2 * ns) fail("corrupt JPEG data: short SOS segment");
-  if (ns != j.ncomp)
-    fail("multi-scan JPEG is not supported (a scan of " + std::to_string(ns) + " of " +
-         std::to_string(j.ncomp) + " components)");
+  const int ns = s[0];
+  if (ns < 1 || ns > 4 || len != 4 + 2 * ns) fail("corrupt JPEG data: bad SOS segment");
+  sc.ns = ns;
   for (int i = 0; i < ns; ++i) {
-    int cs = s[1 + 2 * i], slots = s[2 + 2 * i];
-    Component* k = nullptr;
-    for (int c = 0; c < j.ncomp; ++c)
-      if (j.comp[c].id == cs) k = &j.comp[c];
-    if (k == nullptr || k != &j.comp[i]) fail("scan components do not match the frame header");
-    k->td = slots >> 4;
-    k->ta = slots & 15;
-    if (k->td > 3 || k->ta > 3) fail("bad Huffman table slot in SOS");
+    const int cs = s[1 + 2 * i], slots = s[2 + 2 * i];
+    int found = -1;
+    for (int c = i; c < j.ncomp && found < 0; ++c)
+      if (j.comp[c].id == cs) found = c;
+    if (found < 0) fail("scan component " + std::to_string(cs) + " is not in the frame header");
+    sc.comp[i] = found;
+    sc.td[i] = slots >> 4;
+    sc.ta[i] = slots & 15;
   }
-  int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
-  if (ss != 0 || se != 63 || ah != 0 || al != 0) fail("bad spectral selection in a baseline scan");
+  sc.ss = s[1 + 2 * ns];
+  sc.se = s[2 + 2 * ns];
+  sc.ah = s[3 + 2 * ns] >> 4;
+  sc.al = s[3 + 2 * ns] & 15;
+}
+
+// DHT, DQT, DRI and the segments skipped (APPn, COM, DNL), wherever they
+// stand; false for any other marker
+bool table_segment(Jpeg& j, int m, const uint8_t* s, int len) {
+  switch (m) {
+    case 0xC4:
+      parse_dht(j, s, len);
+      return true;
+    case 0xDB:
+      parse_dqt(j, s, len);
+      return true;
+    case 0xDD:
+      if (len < 2) fail("corrupt JPEG data: short DRI segment");
+      j.restart = u16be(s);
+      return true;
+    case 0xDC:  // DNL: libjpeg skips it
+    case 0xFE:
+      return true;
+    default:
+      return m >= 0xE0 && m <= 0xEF;
+  }
+}
+
+[[noreturn]] void refuse_frame(int m) {
+  switch (m) {
+    case 0xC3:
+      fail("lossless JPEG (SOF3) is not supported");
+    case 0xC5:
+    case 0xC6:
+    case 0xC7:
+      fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
+    case 0xCC:
+      fail("arithmetic-coded JPEG (DAC) is not supported");
+    default:
+      fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
+  }
 }
 
 // Markers from SOI up to the first SOS; without `to_scan` (the header
@@ -564,35 +627,22 @@ void parse_headers(Jpeg& j, const uint8_t* buf, size_t n, bool to_scan) {
     switch (m) {
       case 0xC0:
       case 0xC1:
-        parse_sof(j, s, len);
-        break;
       case 0xC2:
-        fail("progressive JPEG (SOF2) is not supported");
+        parse_sof(j, s, len);
+        j.progressive = m == 0xC2;
+        break;
       case 0xC3:
-        fail("lossless JPEG (SOF3) is not supported");
       case 0xC5:
       case 0xC6:
       case 0xC7:
-        fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
       case 0xC9:
       case 0xCA:
       case 0xCB:
+      case 0xCC:
       case 0xCD:
       case 0xCE:
       case 0xCF:
-        fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
-      case 0xCC:
-        fail("arithmetic-coded JPEG (DAC) is not supported");
-      case 0xC4:
-        parse_dht(j, s, len);
-        break;
-      case 0xDB:
-        parse_dqt(j, s, len);
-        break;
-      case 0xDD:
-        if (len < 2) fail("corrupt JPEG data: short DRI segment");
-        j.restart = u16be(s);
-        break;
+        refuse_frame(m);
       case 0xE1:
         if (!saw_exif && len >= 6 && std::memcmp(s, "Exif\0\0", 6) == 0) {
           saw_exif = true;
@@ -603,12 +653,11 @@ void parse_headers(Jpeg& j, const uint8_t* buf, size_t n, bool to_scan) {
         if (len >= 12 && std::memcmp(s, "Adobe", 5) == 0) j.adobe_transform = s[11];
         break;
       case 0xDA:
-        parse_sos(j, s, len);
+        parse_sos(j, s, len, j.first);
         j.scan = p;
         return;
       default:
-        if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) break;  // APPn, COM
-        fail("unsupported JPEG marker " + hex2(m));
+        if (!table_segment(j, m, s, len)) fail("unsupported JPEG marker " + hex2(m));
     }
     if (!to_scan && j.have_frame && saw_exif) return;
   }
@@ -625,21 +674,36 @@ void check_colour(const Jpeg& j) {
 
 // ------------------------------------------------------------ decoding
 
+// The table of slot `slot` for a scan: libjpeg-turbo's standard tables
+// (jstdhuff.c) stand in for an empty slot 0 or 1
+const Huffman& huffman_table(Jpeg& j, bool ac, int slot) {
+  const std::string kind = ac ? "AC" : "DC";
+  if (slot > 3) fail(kind + " Huffman table " + std::to_string(slot) + " not defined");
+  Huffman& t = ac ? j.ac[slot] : j.dc[slot];
+  if (!t.defined) {
+    if (slot > 1) fail(kind + " Huffman table " + std::to_string(slot) + " not defined");
+    if (ac) set_std(t, slot ? kAcChromBits : kAcLumBits, slot ? kAcChromVals : kAcLumVals, false);
+    else set_std(t, slot ? kDcChromBits : kDcLumBits, kDcVals, true);
+  }
+  return t;
+}
+
+// The single-scan file: its scan decoded and inverse transformed block by
+// block into the planes.
 void decode_scan(Jpeg& j) {
   const Tables& tab = tables();
   const uint8_t* limit = tab.idct_limit;
+  // Ss, Se, Ah and Al other than 0, 63, 0, 0 are only a warning in
+  // jdhuff.c (JWRN_NOT_SEQUENTIAL): the scan is read as a sequential one
+  const Scan& sc = j.first;
   for (int c = 0; c < j.ncomp; ++c) {
     Component& k = j.comp[c];
+    if (sc.comp[c] != c) fail("scan components do not match the frame header");
+    k.td = sc.td[c];
+    k.ta = sc.ta[c];
     if (!j.have_quant[k.tq]) fail("quantization table " + std::to_string(k.tq) + " not defined");
-    if (!j.dc[k.td].defined) {
-      if (k.td > 1) fail("DC Huffman table " + std::to_string(k.td) + " not defined");
-      set_std(j.dc[k.td], k.td ? kDcChromBits : kDcLumBits, kDcVals, true);
-    }
-    if (!j.ac[k.ta].defined) {
-      if (k.ta > 1) fail("AC Huffman table " + std::to_string(k.ta) + " not defined");
-      set_std(j.ac[k.ta], k.ta ? kAcChromBits : kAcLumBits, k.ta ? kAcChromVals : kAcLumVals,
-              false);
-    }
+    huffman_table(j, false, k.td);
+    huffman_table(j, true, k.ta);
   }
   bool single = j.ncomp == 1;
   int mcux, mcuy;
@@ -714,8 +778,10 @@ void decode_scan(Jpeg& j) {
     }
   }
   // after the scan, up to EOI (bytes before a marker are skipped, as cv2
-  // skips them); a second SOS would be a multi-scan file. Without an EOI
-  // cv2 returns no image (its reader suspends at the end of the data).
+  // skips them). libjpeg has decided at the first SOS that the file has one
+  // scan and has output the image before it meets a second SOS, so cv2
+  // returns that image. Without an EOI cv2 returns no image (its reader
+  // suspends at the end of the data).
   const uint8_t* p = br.p;
   const uint8_t* end = j.end;
   for (;;) {
@@ -723,11 +789,393 @@ void decode_scan(Jpeg& j) {
     while (p < end && *p == 0xFF) ++p;
     if (p >= end) fail("corrupt JPEG data: premature end of file (no EOI marker)");
     int m = *p++;
-    if (m == 0xD9) return;
-    if (m == 0xDA) fail("multi-scan JPEG is not supported (a second SOS)");
+    if (m == 0xD9 || m == 0xDA) return;
     if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD8)) continue;
     if (end - p < 2) fail("corrupt JPEG data: premature end of file (no EOI marker)");
     p += u16be(p);
+  }
+}
+
+// ------------------------------------------------------------ multi-scan
+
+// jdcoefct.c's whole-image coefficient buffer (zeroed, padded to whole
+// MCUs), the quantization table each component latched at its first scan
+// (jdinput.c latch_quant_tables; zeros for a component no scan held, as
+// jddctmgr.c leaves it) and, for a progressive file, jdphuff.c's
+// coef_bits: the successive-approximation bit to which each coefficient
+// is known, -1 before its first scan.
+struct Coefficients {
+  int wib[3] = {0, 0, 0}, hib[3] = {0, 0, 0};  // width_in_blocks, height_in_blocks
+  int bw[3] = {0, 0, 0}, bh[3] = {0, 0, 0};    // the same, padded to whole MCUs
+  std::vector<int16_t> blocks[3];              // 64 natural-order coefficients a block
+  int16_t quant[3][64];
+  bool latched[3] = {false, false, false};
+  int bits[3][64];
+
+  explicit Coefficients(const Jpeg& j) {
+    std::memset(quant, 0, sizeof quant);
+    for (int c = 0; c < j.ncomp; ++c) {
+      const Component& k = j.comp[c];
+      wib[c] = (int)(((int64_t)j.width * k.h + 8 * j.hmax - 1) / (8 * j.hmax));
+      hib[c] = (int)(((int64_t)j.height * k.v + 8 * j.vmax - 1) / (8 * j.vmax));
+      bw[c] = (wib[c] + k.h - 1) / k.h * k.h;
+      bh[c] = (hib[c] + k.v - 1) / k.v * k.v;
+      blocks[c].assign((size_t)bw[c] * bh[c] * 64, 0);
+      std::fill(bits[c], bits[c] + 64, -1);
+    }
+  }
+  int16_t* block(int c, int bx, int by) {
+    return blocks[c].data() + ((size_t)by * bw[c] + bx) * 64;
+  }
+};
+
+// jdphuff.c start_pass_phuff_decoder: the scan's parameters checked
+// (JERR_BAD_PROGRESSION), then coef_bits advanced to Al over the band. A
+// band whose Ah is not the bit it is known to is only a warning there
+// (JWRN_BOGUS_PROGRESSION), and is decoded all the same.
+void start_progressive_scan(const Scan& sc, Coefficients& cf) {
+  bool bad = sc.ss == 0 ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
+  if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+  if (sc.al > 13) bad = true;
+  if (bad)
+    fail("bad progression parameters Ss=" + std::to_string(sc.ss) + " Se=" +
+         std::to_string(sc.se) + " Ah=" + std::to_string(sc.ah) + " Al=" + std::to_string(sc.al));
+  for (int i = 0; i < sc.ns; ++i) {
+    int* bits = cf.bits[sc.comp[i]];
+    std::fill(bits + sc.ss, bits + sc.se + 1, sc.al);
+  }
+}
+
+// One scan's entropy-coded data into the buffer: jdhuff.c decode_mcu for a
+// sequential scan, jdphuff.c decode_mcu_DC_first / _DC_refine /
+// _AC_first / _AC_refine for a progressive one, MCU by MCU as
+// jdcoefct.c consume_data walks them (jdinput.c per_scan_setup: a scan of
+// one component covers its own blocks, one an MCU and no dummy blocks; an
+// interleaved scan covers whole MCUs of the frame's grid, dummy blocks
+// included). process_restart resets the DC predictors and the EOB run.
+void decode_scan_into(Jpeg& j, const Scan& sc, Coefficients& cf, BitReader& br) {
+  enum { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+  const int mode = !j.progressive ? kSequential
+                   : sc.ss == 0   ? (sc.ah == 0 ? kDcFirst : kDcRefine)
+                                  : (sc.ah == 0 ? kAcFirst : kAcRefine);
+  const Huffman* dct[4] = {nullptr, nullptr, nullptr, nullptr};
+  const Huffman* act[4] = {nullptr, nullptr, nullptr, nullptr};
+  for (int i = 0; i < sc.ns; ++i) {
+    if (mode == kSequential || mode == kDcFirst) dct[i] = &huffman_table(j, false, sc.td[i]);
+    if (mode == kSequential || mode >= kAcFirst) act[i] = &huffman_table(j, true, sc.ta[i]);
+  }
+  int mcux, mcuy;
+  if (sc.ns == 1) {
+    mcux = cf.wib[sc.comp[0]];
+    mcuy = cf.hib[sc.comp[0]];
+  } else {
+    mcux = (j.width + 8 * j.hmax - 1) / (8 * j.hmax);
+    mcuy = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
+    int blocks = 0;
+    for (int i = 0; i < sc.ns; ++i) blocks += j.comp[sc.comp[i]].h * j.comp[sc.comp[i]].v;
+    if (blocks > 10) fail("bad MCU size: " + std::to_string(blocks) + " blocks (at most 10)");
+  }
+  const int al = sc.al;
+  const int p1 = 1 << al, m1 = (int)(~0u << al);  // +1 and -1 in the bit coded
+  int pred[4] = {0, 0, 0, 0};
+  unsigned eobrun = 0;
+  const int64_t total = (int64_t)mcux * mcuy;
+  int64_t todo = j.restart;
+  int next_rst = 0;
+  for (int64_t m = 0; m < total; ++m) {
+    if (j.restart) {
+      if (todo == 0) {
+        br.restart(next_rst);
+        next_rst = (next_rst + 1) & 7;
+        pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun = 0;
+        todo = j.restart;
+      }
+      --todo;
+    }
+    const int mx = (int)(m % mcux), my = (int)(m / mcux);
+    for (int i = 0; i < sc.ns; ++i) {
+      const int c = sc.comp[i];
+      const int h = sc.ns == 1 ? 1 : j.comp[c].h, v = sc.ns == 1 ? 1 : j.comp[c].v;
+      for (int by = 0; by < v; ++by) {
+        for (int bx = 0; bx < h; ++bx) {
+          int16_t* b = cf.block(c, mx * h + bx, my * v + by);
+          switch (mode) {
+            case kSequential: {
+              int s = br.decode(*dct[i]);
+              if (s) pred[i] += extend(br.bits(s), s);
+              b[0] = (int16_t)pred[i];
+              for (int k = 1; k < 64; ++k) {
+                const int rs = br.decode(*act[i]), r = rs >> 4;
+                s = rs & 15;
+                if (s) {
+                  k += r;
+                  b[kNatural[k]] = (int16_t)extend(br.bits(s), s);
+                } else {
+                  if (r != 15) break;
+                  k += 15;
+                }
+              }
+              break;
+            }
+            case kDcFirst: {
+              const int s = br.decode(*dct[i]);
+              if (s) pred[i] += extend(br.bits(s), s);
+              b[0] = (int16_t)((uint32_t)pred[i] << al);
+              break;
+            }
+            case kDcRefine:
+              if (br.bits(1)) b[0] = (int16_t)(b[0] | p1);
+              break;
+            case kAcFirst:
+              if (eobrun > 0) {
+                --eobrun;
+                break;
+              }
+              for (int k = sc.ss; k <= sc.se; ++k) {
+                const int rs = br.decode(*act[i]), r = rs >> 4, s = rs & 15;
+                if (s) {
+                  k += r;
+                  b[kNatural[k]] = (int16_t)((uint32_t)extend(br.bits(s), s) << al);
+                } else if (r == 15) {
+                  k += 15;
+                } else {  // EOBr: this block and 2^r - 1 + (r bits) more
+                  eobrun = 1u << r;
+                  if (r) eobrun += (unsigned)br.bits(r);
+                  --eobrun;
+                  break;
+                }
+              }
+              break;
+            case kAcRefine: {
+              // a correction bit for each coefficient with history that the
+              // run passes; a run counts only coefficients still zero
+              auto correct = [&](int16_t& t) {
+                if (br.bits(1) && (t & p1) == 0) t = (int16_t)(t >= 0 ? t + p1 : t + m1);
+              };
+              int k = sc.ss;
+              if (eobrun == 0) {
+                for (; k <= sc.se; ++k) {
+                  const int rs = br.decode(*act[i]);
+                  int r = rs >> 4, s = rs & 15;
+                  if (s) {  // a size other than 1 is a warning; libjpeg reads it as 1
+                    s = br.bits(1) ? p1 : m1;
+                  } else if (r != 15) {
+                    eobrun = 1u << r;
+                    if (r) eobrun += (unsigned)br.bits(r);
+                    break;
+                  }
+                  do {
+                    int16_t& t = b[kNatural[k]];
+                    if (t != 0) correct(t);
+                    else if (--r < 0) break;
+                    ++k;
+                  } while (k <= sc.se);
+                  if (s) b[kNatural[k]] = (int16_t)s;
+                }
+              }
+              if (eobrun > 0) {
+                for (; k <= sc.se; ++k) {
+                  int16_t& t = b[kNatural[k]];
+                  if (t != 0) correct(t);
+                }
+                --eobrun;
+              }
+              break;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// jdmarker.c read_markers between scans: bytes up to a marker skipped (a
+// warning there), table segments read; false at EOI, true at the next SOS
+// with `sc` filled in. Without an EOI libjpeg suspends and cv2 returns no
+// image.
+bool next_scan(Jpeg& j, const uint8_t*& p, Scan& sc) {
+  const uint8_t* end = j.end;
+  for (;;) {
+    while (p < end && *p != 0xFF) ++p;
+    while (p < end && *p == 0xFF) ++p;
+    if (p >= end) fail("corrupt JPEG data: premature end of file (no EOI marker)");
+    const int m = *p++;
+    if (m == 0xD9) return false;
+    if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+    if (m == 0xD8) fail("corrupt JPEG data: a second SOI marker");
+    if (end - p < 2) fail("corrupt JPEG data: premature end of file in a marker");
+    const int len = u16be(p) - 2;
+    if (len < 0 || end - p - 2 < len) fail("corrupt JPEG data: premature end of file in a marker");
+    const uint8_t* s = p + 2;
+    p = s + len;
+    if (m == 0xDA) {
+      parse_sos(j, s, len, sc);
+      return true;
+    }
+    if (m == 0xCC) refuse_frame(m);
+    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8) fail("more than one frame header (SOF)");
+    if (!table_segment(j, m, s, len)) fail("unsupported JPEG marker " + hex2(m));
+  }
+}
+
+// jdcoefct.c smoothing_ok: block smoothing (on by default in libjpeg) runs
+// on a progressive file when every component has latched a table without
+// a zero among its first ten quantizers and has had a DC scan, and some
+// component's AC coefficients 1-9 (zigzag) are not known to their last
+// bit: the file's last refinement scans are missing. A complete file has
+// every coef_bits entry at 0, so it never smooths.
+bool smoothing_ok(const Jpeg& j, const Coefficients& cf) {
+  bool useful = false;
+  for (int c = 0; c < j.ncomp; ++c) {
+    if (!cf.latched[c]) return false;
+    for (int i = 0; i < 10; ++i)
+      if (cf.quant[c][kNatural[i]] == 0) return false;
+    if (cf.bits[c][0] < 0) return false;
+    for (int i = 1; i < 10; ++i)
+      if (cf.bits[c][i] != 0) useful = true;
+  }
+  return useful;
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): each
+// block's coefficients 1-9 (zigzag) that are still zero and not known to
+// their last bit are estimated from the DC values of the 5x5 blocks around
+// it (the DC too, by a Gaussian-like kernel, while the component has had
+// no AC scan), then the block goes through the IDCT. Past the left and
+// right edges the neighbours repeat the edge column; the rows follow
+// libjpeg's iMCU-row bookkeeping, whose last iMCU row (when it holds fewer
+// block rows than the sampling factor) counts its rows as if every iMCU
+// row held that many, and whose dummy rows below the image may be read.
+void smooth_component(Jpeg& j, Coefficients& cf, int c, const uint8_t* limit) {
+  Component& k = j.comp[c];
+  const int* bits = cf.bits[c];
+  const int16_t* q = cf.quant[c];
+  const int v = k.v, wib = cf.wib[c], hib = cf.hib[c];
+  const int total = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
+  bool change_dc = true;
+  for (int i = 1; i < 10; ++i) change_dc = change_dc && bits[i] == -1;
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9], Q02 = q[2],
+                Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  int16_t ws[64];
+  // round(num / (256 Q)) with its magnitude capped below bit Al when Al > 0
+  auto estimate = [&](int pos, int al, int64_t qv, int64_t num) {
+    if (al == 0 || ws[pos] != 0) return;
+    int pred = (int)(((qv << 7) + (num >= 0 ? num : -num)) / (qv << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    ws[pos] = (int16_t)(num >= 0 ? pred : -pred);
+  };
+  for (int r = 0; r < total; ++r) {
+    int block_rows = v;
+    if (r == total - 1) {
+      block_rows = hib % v;
+      if (block_rows == 0) block_rows = v;
+    }
+    const int image_block_rows = block_rows * total;
+    for (int br = 0; br < block_rows; ++br) {
+      const int row = r * v + br, ibr = r * block_rows + br;
+      const int prev = ibr > 0 ? row - 1 : row;
+      const int pprev = ibr > 1 ? row - 2 : prev;
+      const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+      const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+      const int rows5[5] = {pprev, prev, row, next, nnext};
+      uint8_t* out = k.plane.data() + (size_t)row * 8 * k.stride;
+      for (int bn = 0; bn < wib; ++bn) {
+        std::memcpy(ws, cf.block(c, bn, row), sizeof ws);
+        int d[26];  // d[1..25]: the 5x5 DC values, row by row
+        for (int y = 0; y < 5; ++y)
+          for (int x = 0; x < 5; ++x)
+            d[5 * y + x + 1] = cf.block(c, std::min(std::max(bn + x - 2, 0), wib - 1), rows5[y])[0];
+        const int64_t DC01 = d[1], DC02 = d[2], DC03 = d[3], DC04 = d[4], DC05 = d[5],
+                      DC06 = d[6], DC07 = d[7], DC08 = d[8], DC09 = d[9], DC10 = d[10],
+                      DC11 = d[11], DC12 = d[12], DC13 = d[13], DC14 = d[14], DC15 = d[15],
+                      DC16 = d[16], DC17 = d[17], DC18 = d[18], DC19 = d[19], DC20 = d[20],
+                      DC21 = d[21], DC22 = d[22], DC23 = d[23], DC24 = d[24], DC25 = d[25];
+        estimate(1, bits[1], Q01,
+                 Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                                     13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                                     3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                                     DC21 - DC22 + DC24 + DC25)
+                                  : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)));
+        estimate(8, bits[2], Q10,
+                 Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                     13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                                     13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                     3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                  : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)));
+        estimate(16, bits[3], Q20,
+                 Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                                     14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                                     DC23)
+                                  : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)));
+        estimate(9, bits[4], Q11,
+                 Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                                     9 * DC19 + DC21 - DC25)
+                                  : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                                     DC22 - DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)));
+        estimate(2, bits[5], Q02,
+                 Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                                     14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                                     2 * DC19)
+                                  : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)));
+        if (change_dc) {
+          estimate(3, bits[6], Q03, Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19));
+          estimate(10, bits[7], Q12, Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19));
+          estimate(17, bits[8], Q21, Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19));
+          estimate(24, bits[9], Q30, Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19));
+          const int64_t num =
+              Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+                     6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                     152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 +
+                     6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                     2 * DC25);
+          const int pred = (int)(((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+          ws[0] = (int16_t)(num >= 0 ? pred : -pred);
+        }
+        idct_islow(ws, q, out + (size_t)bn * 8, k.stride, limit);
+      }
+    }
+  }
+}
+
+// A multi-scan file (progressive, or sequential with scans of fewer
+// components than the frame): every scan up to EOI read into the
+// coefficient buffer, then each block inverse transformed into the planes
+// (jdcoefct.c decompress_data, or decompress_smooth_data when
+// smoothing_ok).
+void decode_multi_scan(Jpeg& j) {
+  Coefficients cf(j);
+  Scan sc = j.first;
+  const uint8_t* p = j.scan;
+  do {
+    for (int i = 0; i < sc.ns; ++i) {
+      const int c = sc.comp[i];
+      if (cf.latched[c]) continue;
+      const int tq = j.comp[c].tq;
+      if (!j.have_quant[tq]) fail("quantization table " + std::to_string(tq) + " not defined");
+      std::memcpy(cf.quant[c], j.quant[tq], sizeof cf.quant[c]);
+      cf.latched[c] = true;
+    }
+    if (j.progressive) start_progressive_scan(sc, cf);
+    BitReader br(p, j.end);
+    decode_scan_into(j, sc, cf, br);
+    p = br.p;
+  } while (next_scan(j, p, sc));
+  const uint8_t* limit = tables().idct_limit;
+  const bool smooth = j.progressive && smoothing_ok(j, cf);
+  for (int c = 0; c < j.ncomp; ++c) {
+    Component& k = j.comp[c];
+    k.stride = cf.bw[c] * 8;
+    k.rows = cf.bh[c] * 8;
+    k.plane.assign((size_t)k.stride * k.rows, 0);
+    if (smooth) {
+      smooth_component(j, cf, c, limit);
+      continue;
+    }
+    for (int by = 0; by < cf.hib[c]; ++by)
+      for (int bx = 0; bx < cf.wib[c]; ++bx)
+        idct_islow(cf.block(c, bx, by), cf.quant[c],
+                   k.plane.data() + (size_t)by * 8 * k.stride + (size_t)bx * 8, k.stride, limit);
   }
 }
 
@@ -791,7 +1239,11 @@ const uint8_t* upsample_row(const Component& k, int hr, int vr, int y, uint8_t* 
 }
 
 void decode_to_bgr(Jpeg& j, uint8_t* out) {
-  decode_scan(j);
+  // jdinput.c initial_setup's has_multiple_scans: a file whose first scan
+  // is progressive or holds fewer components than the frame is read scan
+  // by scan into the coefficient buffer; any other in one pass
+  if (j.progressive || j.first.ns < j.ncomp) decode_multi_scan(j);
+  else decode_scan(j);
   const Tables& tab = tables();
   const int w = j.width;
   std::vector<uint8_t> tmp[3];

@@ -153,21 +153,30 @@ def test_exif_orientation_as_cv2(tmp_path, orientation):
         assert image_size(path) == want.shape[:2]
 
 
+def with_frame_marker(buf: bytes, marker: int) -> bytes:
+    """``buf`` with its frame header's marker (SOF0 / SOF2) replaced: the
+    header of a frame type the decoder does not read."""
+    p = max(buf.find(b"\xff\xc0"), buf.find(b"\xff\xc2"))
+    return buf[:p + 1] + bytes([marker]) + buf[p + 2:]
+
+
 def apng(png: bytes) -> bytes:
     """``png`` with an acTL chunk after its IHDR: an animated PNG."""
     return png[:33] + chunk(b"acTL", struct.pack(">II", 1, 0)) + png[33:]
 
 
-@pytest.mark.parametrize("case", ["progressive", "png", "truncated", "empty"])
+@pytest.mark.parametrize("case", ["progressive", "lossless", "png", "truncated", "empty"])
 def test_refusals_name_what_they_refuse(tmp_path, case):
-    """Outside the decoders (a progressive JPEG, an animated PNG), or
-    corrupt: ``OSError`` with a reason (and, from ``imread``, the path).
-    Truncated entropy-coded data raises
+    """Outside the decoders (a progressive arithmetic-coded JPEG, a lossless
+    one, an animated PNG), or corrupt: ``OSError`` with a reason (and, from
+    ``imread``, the path). Truncated entropy-coded data raises
     where libjpeg would warn and fill with zeros (a deliberate divergence;
     cv2 5.0 returns None for it)."""
     img = textured(np.random.default_rng(0), 64, 80)
     data, reason = {
-        "progressive": (encode(img, progressive=1), "progressive JPEG"),
+        "progressive": (with_frame_marker(encode(img, progressive=1), 0xCA),
+                        "arithmetic-coded JPEG \\(SOF10\\)"),
+        "lossless": (with_frame_marker(encode(img), 0xC3), "lossless JPEG \\(SOF3\\)"),
         "png": (apng(cv2.imencode(".png", img)[1].tobytes()), "animated PNG"),
         "truncated": (encode(img)[:900], "premature end"),
         "empty": (b"", "empty file"),
@@ -193,6 +202,7 @@ def damaged(case: str) -> bytes:
         "no EOI": buf[:-2],
         "wrong restart marker": buf[:rst] + b"\xff\xd5" + buf[rst + 2:],
         "a second scan": buf[:-2] + buf[sos:],
+        "scan parameters not sequential": buf[:sos + 11] + b"\x00\x00\x01" + buf[sos + 14:],
     }[case]
 
 
@@ -200,20 +210,24 @@ def damaged(case: str) -> bytes:
     ("bytes before EOI", True, True), ("fill bytes before EOI", True, True),
     ("bytes after EOI", True, True), ("bytes before a restart marker", True, True),
     ("bytes between header segments", False, False), ("no EOI", False, False),
-    # deliberate divergences: libjpeg resynchronises, or ignores the scan
-    ("wrong restart marker", True, False), ("a second scan", True, False),
+    # libjpeg has output the one-scan image before it meets the second SOS
+    ("a second scan", True, True),
+    # Ss, Se, Ah, Al of 0, 0, 0, 1 in a one-scan file: a warning in libjpeg
+    ("scan parameters not sequential", True, True),
+    # a deliberate divergence: libjpeg resynchronises
+    ("wrong restart marker", True, False),
 ])
 def test_damaged_files_as_cv2_or_refused(case, cv2_reads, port_reads):
     """Where cv2 reads a damaged file the port gives the same image, where
-    cv2 gives None the port raises; two cases where cv2 returns an image
-    are refused (ROADMAP C)."""
+    cv2 gives None the port raises; one case where cv2 returns an image is
+    refused (ROADMAP C)."""
     data = damaged(case)
     want = cv2_decode(data)
     assert (want is not None) == cv2_reads
     if port_reads:
         np.testing.assert_array_equal(imdecode(data), want)
     else:
-        with pytest.raises(OSError, match="corrupt JPEG data|multi-scan"):
+        with pytest.raises(OSError, match="corrupt JPEG data"):
             imdecode(data)
 
 
@@ -265,11 +279,13 @@ def digest(arr) -> dict:
 
 def test_fixture_digests_are_cv2s():
     """``digests.json`` is cv2's reading of every committed fixture (and of
-    its resizes of the frames), and the port reads the same bytes."""
+    its resizes of the frames), and the port reads the same bytes: 23
+    baseline JPEGs and, under ``progressive/``, 25 progressive and
+    multi-scan ones."""
     with open(FIXTURES / "digests.json") as f:
         digests = json.load(f)
     files = sorted(p.relative_to(FIXTURES).as_posix() for p in FIXTURES.glob("*/**/*.jpg"))
-    assert files == sorted(digests["decode"]) and len(files) == 23
+    assert files == sorted(digests["decode"]) and len(files) == 23 + 25
     for rel in files:
         want = cv2.imread(str(FIXTURES / rel))
         assert digest(want) == digests["decode"][rel], rel

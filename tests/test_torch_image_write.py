@@ -1,4 +1,4 @@
-"""The port's JPEG writing and PNG reading without cv2
+"""The port's JPEG and PNG writing and PNG reading without cv2
 (``streamyolo_torch/data/image_io.py`` over ``native/image_io.cpp``)
 against cv2 5.x and the JAX package, on the CPU. Everything is compared for
 equality; there is no tolerance.
@@ -14,7 +14,10 @@ equality; there is no tolerance.
     chunk by chunk (palettes at 1/2/4/8 bits with tRNS, 1/2/4-bit gray, gray
     with alpha, Adam7, every filter type, eXIf orientations), and damaged
     files, which raise ``OSError`` wherever cv2 returns None;
-  * ``db_from_img_folder`` over PNG frames equals the JAX package's.
+  * ``db_from_img_folder`` over PNG frames equals the JAX package's;
+  * ``imencode(img, ".png")`` / ``imwrite`` of a ``.png`` give
+    ``cv2.imencode('.png')``'s bytes, which cv2 and the port read back to
+    the input.
 """
 
 import hashlib
@@ -99,9 +102,11 @@ def test_imwrite_refusals(tmp_path):
     img = np.zeros((8, 8, 3), np.uint8)
     imwrite(tmp_path / "a.JPEG", img, quality=50)
     assert (tmp_path / "a.JPEG").read_bytes() == cv2_encode(img, 50)
-    for name in ("a.png", "a.bmp", "noext"):
+    for name in ("a.bmp", "noext"):
         with pytest.raises(ValueError, match="JPEG"):
             imwrite(tmp_path / name, img)
+    with pytest.raises(ValueError, match="PNG"):
+        imencode(img, ".bmp")
     for bad, what in ((img.astype(np.float32), "uint8"), (np.zeros((4, 4, 4), np.uint8), "BGR"),
                       (np.zeros((0, 4, 3), np.uint8), "size")):
         with pytest.raises(ValueError, match=what):
@@ -109,6 +114,28 @@ def test_imwrite_refusals(tmp_path):
     for q in (-1, 101, 9.5):
         with pytest.raises(ValueError, match="quality"):
             imencode(img, q)
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+def test_png_writing_reads_back_and_equals_cv2(tmp_path, channels):
+    """``imencode(img, ".png")`` and ``imwrite`` of a ``.png``: read back by
+    ``cv2.imread`` and by the port's own PNG reader, the pixels are the
+    input; the bytes are ``cv2.imencode('.png')``'s (cv2's default Sub
+    filter, zlib level 1 with the run-length strategy, 8192-byte IDATs)."""
+    rng = np.random.default_rng(channels)
+    for h, w in ((1, 1), (1, 5), (5, 1), *SIZES, (1200, 1920)):
+        for img in (textured(rng, h, w, channels), np.zeros((h, w, channels), np.uint8)):
+            img = img.reshape(h, w, channels)[..., 0] if channels == 1 else img
+            data = imencode(img, ".png")
+            assert data == cv2.imencode(".png", img)[1].tobytes(), (h, w)
+            want = img if channels == 3 else np.repeat(img[..., None], 3, -1)
+            np.testing.assert_array_equal(imdecode(data), want)
+            path = tmp_path / "frame.png"
+            imwrite(path, img)
+            assert path.read_bytes() == data
+            np.testing.assert_array_equal(cv2.imread(str(path), cv2.IMREAD_UNCHANGED), img)
+            np.testing.assert_array_equal(imread(path), want)
+            assert image_size(path) == (h, w)
 
 
 def tree(root: Path) -> dict:

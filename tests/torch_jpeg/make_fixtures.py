@@ -9,6 +9,17 @@
   * ``small/*.jpg``: crops of frame 0 written by cv2 in each sampling
     factor, grayscale, with a restart interval, with optimised Huffman
     tables, with an Exif orientation and without its DHT segments;
+  * ``progressive/frames/seq00/00000{0,1,2}.jpg``: the same three frames'
+    pixels (the port's ``SyntheticArgoverse``, draw for draw the JAX
+    generator's) written by cv2 progressive at quality 90, which read to
+    the baseline frames' bytes;
+  * ``progressive/small/*.jpg``: the crops of ``small/`` written by cv2
+    progressive in each sampling factor, grayscale, with optimised tables
+    and with a restart interval; the 120x161 crop cut after its third scan
+    (an incomplete file, which libjpeg smooths); and three files of
+    ``tests/torch_jpeg_scans.py``: sequential non-interleaved scans, a
+    spectral-selection script with a restart interval, and one whose bands
+    stop at coefficient 9;
   * ``png/*.png``: crops of frame 0 written by cv2 (BGR, BGRA 16-bit, gray)
     and PNGs built chunk by chunk (``tests/torch_png.py``: a 4-bit palette
     with tRNS and Adam7, 2-bit gray with every filter type, 16-bit RGB with
@@ -73,18 +84,37 @@ def without_dht(buf: bytes) -> bytes:
     return bytes(out + buf[p:])
 
 
+def first_scans(buf: bytes, k: int) -> bytes:
+    """``buf`` up to the end of its k-th scan's data, then EOI."""
+    p, scans = 2, 0
+    while True:
+        marker = buf[p + 1]
+        p += 2 + struct.unpack(">H", buf[p + 2:p + 4])[0]
+        if marker != 0xDA:
+            continue
+        while not (buf[p] == 0xFF and buf[p + 1] != 0 and not 0xD0 <= buf[p + 1] <= 0xD7):
+            p += 1
+        scans += 1
+        if scans == k:
+            return buf[:p] + b"\xff\xd9"
+
+
 def main() -> None:
     import cv2
     import numpy as np
 
     sys.path.insert(0, str(HERE.parents[1]))
     from streamyolo_tpu.data.dbcode import make_synthetic_argoverse
+    from streamyolo_torch.data.dbcode import SyntheticArgoverse
+    from tests.torch_jpeg_scans import random_coefficients, write_jpeg
     from tests.torch_png import chunk, exif, png_file
 
     frames_dir = HERE / "frames" / "seq00"
     small_dir = HERE / "small"
     png_dir = HERE / "png"
-    for d in (frames_dir, small_dir, png_dir):
+    prog_frames, prog_small = HERE / "progressive" / "frames" / "seq00", HERE / "progressive" / "small"
+    shutil.rmtree(HERE / "progressive", ignore_errors=True)
+    for d in (frames_dir, small_dir, png_dir, prog_frames, prog_small):
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -104,9 +134,29 @@ def main() -> None:
     files["restart_120x161.jpg"] = (crop, [cv2.IMWRITE_JPEG_RST_INTERVAL, 3])
     files["optimized_120x161.jpg"] = (crop, [cv2.IMWRITE_JPEG_OPTIMIZE, 1])
     for name, (img, params) in files.items():
-        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90, *params])
-        assert ok, name
-        (small_dir / name).write_bytes(buf.tobytes())
+        for out_dir, extra in ((small_dir, []), (prog_small, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])):
+            ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90, *params, *extra])
+            assert ok, name
+            (out_dir / name).write_bytes(buf.tobytes())
+    synth = SyntheticArgoverse(seq_lens=(3,), size=(1200, 1920), seed=0)
+    for im in synth.data["images"]:
+        ok, buf = cv2.imencode(".jpg", synth.frame(im), [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                                         cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        assert ok, im["name"]
+        (prog_frames / im["name"]).write_bytes(buf.tobytes())
+    whole = (prog_small / "restart_120x161.jpg").read_bytes()
+    (prog_small / "incomplete_3scans_120x161.jpg").write_bytes(first_scans(whole, 3))
+    rng = np.random.default_rng(0)
+    s420 = [(2, 2), (1, 1), (1, 1)]
+    coefs = random_coefficients(rng, 37, 53, s420)
+    quant = [rng.integers(1, 9, 64) for _ in s420]
+    for name, progressive, script, restart in (
+            ("scans_sequential_37x53.jpg", False, [([2], 0, 63), ([0], 0, 63), ([1], 0, 63)], 0),
+            ("scans_spectral_restart_37x53.jpg", True,
+             [([0, 1, 2], 0, 0), ([0], 1, 5), ([2], 1, 63), ([1], 1, 63), ([0], 6, 63)], 3),
+            ("scans_incomplete_37x53.jpg", True, [([0, 1, 2], 0, 0), ([0], 1, 9)], 0)):
+        (prog_small / name).write_bytes(write_jpeg(coefs, 37, 53, s420, quant, script,
+                                                   progressive, restart))
     plain = (small_dir / "s420_37x53.jpg").read_bytes()
     (small_dir / "exif6_37x53.jpg").write_bytes(with_orientation(plain, 6))
     (small_dir / "no_dht_37x53.jpg").write_bytes(without_dht(plain))
