@@ -67,14 +67,20 @@ in two rank processes on the card over gloo against one process over the
 same batch and a NCCL group of one, then ``tools/train.py`` as rank 0 and 1
 of two machines (one epoch, the sharded eval with B1 in each rank, rank 0's
 gathered rows against a one-process eval of its checkpoint); the ranks run
-as ``chip_smoke.py --dp-rank ...``. Each phase prints
+as ``chip_smoke.py --dp-rank ...``. Last (phase ``bench``), it runs the
+port's measuring tools (``streamyolo_torch/tools/bench.py``, ``bench_suite.py``,
+``train_sweep.py``, ``bench_hostpath.py``) once each at full width with few
+samples, checks each JSON line (its keys, the card, every time finite and
+above 0, ``0 < mfu <= 1.05``), holds the chain ``bench.py`` times to a
+detector fed call by call, and the full-width work count to the step's 128
+conv calls. Each phase prints
 one JSON line; the line before the last lists the kernels, with their
 launches on every path (from graphs: launches captured per graph x
 replays), and the last line is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and prints
 no result. Imports nothing of JAX. ``--only train`` (or
 ``trained_e2e``, ``aot_serve``, ``data_parallel``, ``spatial``,
-``image_io``, ``from_disk``) runs the build and that phase alone.
+``image_io``, ``from_disk``, ``bench``) runs the build and that phase alone.
 """
 
 from __future__ import annotations
@@ -177,6 +183,11 @@ IMAGE_IO_TIMED, IMAGE_IO_SIZES = 20, ((600, 960), (601, 959))
 # from_disk: the rehearsal's fixture written by the port (frames a
 # sequence) and its measured latency samples
 FROM_DISK_REHEARSAL_FRAMES, FROM_DISK_REHEARSAL_SAMPLES = 10, 5
+# bench: the measuring tools at full width with few samples (samples, calls
+# per sample), stream_sweep's stream counts, the train batch of train_sweep
+# and bench_hostpath --train; the chain held to the detector (steps)
+BENCH_SAMPLES, BENCH_STEPS, BENCH_SWEEP, BENCH_TRAIN_BATCH = 2, 10, "1,8", 8
+BENCH_CHAIN_STEPS = 12
 # IoU of one pair: 4 max/min, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 clamp, 1 div, 1 cmp
 NMS_OPS_PER_IOU = 14
 # per output pixel and channel: 3 adds, 1 mul, 1 add, floor, 2 clamps
@@ -3390,10 +3401,182 @@ def phase_from_disk(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     return launches
 
 
+def tool_line(tool, argv) -> dict:
+    """Run a measuring tool's ``main(argv)`` in this process and parse the
+    one JSON line it prints last."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tool.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and bool(lines), f"{tool.__name__} {argv}: exit {rc}, no output")
+    return json.loads(lines[-1])
+
+
+def json_leaves(obj, path: str = "", key=None):
+    """(path, key, value) of every value in a tool's line that is neither a
+    dict nor a list (a list's items carry the list's key)."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from json_leaves(v, f"{path}.{k}" if path else k, k)
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from json_leaves(v, f"{path}[{i}]", key)
+    else:
+        yield path, key, obj
+
+
+def bench_times(line: dict):
+    """(path, value) of every measured time in a tool's line: the numbers
+    under keys that name milliseconds (``step_ms``, ``ms_per_step``,
+    ``min_ms``, ...) and the seconds of the fixture and the captures."""
+    return [(p, v) for p, k, v in json_leaves(line)
+            if isinstance(v, (int, float)) and not isinstance(v, bool)
+            and (re.search(r"(^|_)ms(_|$)", k) or k in ("fixture_write_s", "capture_s"))]
+
+
+def bench_check(name: str, line: dict, keys, kind: str, smi: str, required_mfu) -> dict:
+    """A tool's line on the card: ``keys`` present, ``device`` this card
+    with ``nvidia-smi``'s line, every measured time finite and above 0
+    (the budget's device-resize row has no resize: 0 by definition), every
+    ``mfu`` given in (0, 1.05] and those at ``required_mfu`` given."""
+    missing = [k for k in keys if k not in line]
+    check(not missing, f"bench: {name} lacks {missing}")
+    dev = line["device"]
+    check(dev.get("kind") == kind and dev.get("nvidia_smi") == smi,
+          f"bench: {name} ran on {dev}, not {kind} / {smi}")
+    times = [(p, v) for p, v in bench_times(line) if p != "budget.device_resize.resize_ms"]
+    bad = [(p, v) for p, v in times if not (np.isfinite(v) and v > 0)]
+    check(bool(times) and not bad, f"bench: {name} times not finite and > 0: {bad[:5]}")
+    mfus = {p: v for p, k, v in json_leaves(line) if k == "mfu"}
+    check(all(mfus.get(p) is not None for p in required_mfu),
+          f"bench: {name} lacks mfu at {[p for p in required_mfu if mfus.get(p) is None]}")
+    out = {p: v for p, v in mfus.items() if v is not None and not 0 < v <= 1.05}
+    check(not out, f"bench: {name} mfu outside (0, 1.05]: {out}")
+    return {"times_checked": len(times), "mfu": {p: v for p, v in mfus.items() if v is not None}}
+
+
+def phase_bench(smi: str) -> dict:
+    """The port's measuring tools (``streamyolo_torch/tools/bench.py``,
+    ``bench_suite.py``, ``train_sweep.py``, ``bench_hostpath.py``), each run
+    once at full width through its ``main`` with few samples, each JSON line
+    checked (``bench_check``). Then the chain ``bench.py`` times, held to the
+    detector: the [K, 8] rows of the chain's last step equal, bit for bit,
+    a ``CUDAStreamDetector`` fed the same frames call by call; and the
+    full-width ``count_work`` of the steady step: 128 ``BaseConv`` calls of
+    ``int8_conv_times.STEP_SHAPES``. The kernel launches of the whole phase
+    (counts set to 0 before it; the graphs' replays from ``bench.py``'s
+    line) go to the ``kernels`` line; B1, B2 and the int8 conv each launch."""
+    import torch
+
+    from streamyolo_torch.ops.int8_conv import int8_conv
+    from streamyolo_torch.ops.nms_cuda import nms_keep
+    from streamyolo_torch.ops.preproc import downsample2x
+    from streamyolo_torch.stream import CUDAStreamDetector
+    from streamyolo_torch.tools import bench, bench_hostpath, bench_suite, train_sweep
+    from streamyolo_torch.tools.int8_conv_times import STEP_SHAPES
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    few = ["--samples", str(BENCH_SAMPLES)]
+    counters = (nms_keep, downsample2x, int8_conv)
+    for c in counters:
+        c.launches = 0
+    lines, checked, seconds = {}, {}, {}
+
+    def run(name, tool, argv, keys, required_mfu):
+        t0 = time.perf_counter()
+        lines[name] = tool_line(tool, argv)
+        seconds[name] = time.perf_counter() - t0
+        checked[name] = bench_check(name, lines[name], keys, kind, smi, required_mfu)
+        torch.cuda.empty_cache()
+
+    run("bench", bench, few + ["--steps", str(BENCH_STEPS)],
+        ("metric", "value", "unit", "vs_baseline", "operating_point", "device", "mfu",
+         "step_ms", "median_step_ms", "graphs"), ("mfu", "graphs.mfu"))
+    check(lines["bench"]["graphs"]["aot_loaded"], "bench: the graph detector serves eagerly")
+    cell_keys = ("ms_per_step", "tflops", "gbytes", "mfu", "hbm_share")
+    suite_steps = ["--steps", str(BENCH_STEPS)]
+    for which, extra in (("all", []), ("stream_int8", []),
+                         ("stream_sweep", ["--batches", BENCH_SWEEP]), ("train_parts", [])):
+        run(f"bench_suite {which}", bench_suite, [which] + few + suite_steps + extra,
+            ("device",), ())
+        cells = {k: v for k, v in lines[f"bench_suite {which}"].items()
+                 if k != "device" and not k.startswith("capacity_")}
+        check(bool(cells) and all(all(k in v for k in cell_keys) for v in cells.values()),
+              f"bench_suite {which}: a cell lacks one of {cell_keys}")
+        check(all(v["mfu"] is not None for v in cells.values() if v["tflops"]),
+              f"bench_suite {which}: a cell with operations has no mfu")
+    run("train_sweep", train_sweep, [str(BENCH_TRAIN_BATCH), "--samples", str(BENCH_SAMPLES),
+                                     "--chain", "2"],
+        ("model", "device", "points"), ("points[0].mfu",))
+    check(lines["train_sweep"]["points"][0]["peak_memory_gb"] > 0,
+          "train_sweep: no peak memory")
+    run("bench_hostpath", bench_hostpath, ["--samples", "10", "--step-samples",
+                                           str(BENCH_SAMPLES), "--steps", str(BENCH_STEPS)],
+        ("device", "host", "transfers", "step", "budget"),
+        ("step.host_resize.mfu", "step.device_resize.mfu"))
+    check(lines["bench_hostpath"]["budget"]["winner"] is not None, "bench_hostpath: no winner")
+    run("bench_hostpath --train", bench_hostpath,
+        ["--train", "--train-batch", str(BENCH_TRAIN_BATCH), "--train-batches", "2",
+         "--train-frames", "4", "--train-workers", "0", "--train-no-cache-row"],
+        ("device", "train"), ("train.train_step.mfu",))
+    check(lines["bench_hostpath --train"]["train"]["loader_w0"]["imgs_per_sec"] > 0,
+          "bench_hostpath --train: the loader gave nothing")
+    graph_launches = lines["bench"]["graphs"].get("launches", {})
+    launches = {"nms": nms_keep.launches + graph_launches.get("nms", 0),
+                "preproc": downsample2x.launches + graph_launches.get("preproc", 0),
+                "int8_conv": int8_conv.launches + graph_launches.get("int8_conv", 0)}
+    check(all(v > 0 for v in launches.values()), f"bench: a kernel never launched: {launches}")
+
+    # the chain bench.py times against the detector fed call by call
+    dev = torch.device("cuda")
+    model = bench.serving_model(bench.seeded_exp(bench.CONFIG), torch.bfloat16, dev)
+    kw = dict(input_size=INPUT, conf_thre=CONF, nms_thre=NMS, num_classes=NCLS,
+              pre_nms_topk=TOPK, use_bf16=True)
+    pool = bench.frame_pool(1, INPUT, dev)
+    saved = [c.launches for c in counters]
+    chained = CUDAStreamDetector(model, **kw)
+    rows = bench.chain(chained, pool, BENCH_CHAIN_STEPS)[0].cpu().numpy()
+    called = CUDAStreamDetector(model, **kw)
+    for i in range(BENCH_CHAIN_STEPS):
+        called(pool[i % len(pool)][0].cpu().numpy(), preprocessed=True)
+    for c, n in zip(counters, saved):
+        c.launches = n  # a check is no launch of the tools
+    check(np.array_equal(rows, called.last_rows),
+          f"bench: the chain's rows after {BENCH_CHAIN_STEPS} steps differ from the "
+          "detector's fed call by call")
+    work = bench.step_work(model, (1, *INPUT, 3))
+    blocks = [tuple(r["shape"]) for r in work["calls"] if r["base_conv"]]
+    counts = {sh: blocks.count(sh) for sh in set(blocks)}
+    check(len(blocks) == sum(n for n, _ in STEP_SHAPES) == 128
+          and sorted(counts.items()) == sorted((sh, n) for n, sh in STEP_SHAPES),
+          "bench: count_work's BaseConv calls differ from int8_conv_times.STEP_SHAPES")
+    del chained, called, model
+    torch.cuda.empty_cache()
+
+    b, g = lines["bench"], lines["bench"]["graphs"]
+    emit("bench", nvidia_smi=smi, model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT),
+         headline={"value": b["value"], "unit": b["unit"], "step_ms": b["step_ms"],
+                   "median_step_ms": b["median_step_ms"], "mfu": b["mfu"],
+                   "hbm_share": b["hbm_share"], "tflops": b["tflops"],
+                   "host_path_ms": b["host_path_ms"]},
+         graphs={k: g[k] for k in ("step_ms", "median_step_ms", "frames_per_sec", "mfu",
+                                   "hbm_share")},
+         chain_rows_equal_detector=True, chain_steps=BENCH_CHAIN_STEPS,
+         chain_kept=int((rows[:, 7] > 0.5).sum()),
+         step_work={"base_conv_calls": len(blocks), "distinct_shapes": len(counts),
+                    "tflops": work["flops"] / 1e12, "gbytes": work["bytes"] / 1e9},
+         checked=checked, seconds=seconds, launches=launches, lines=lines,
+         elapsed_phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main(only: str = None) -> int:
     """The whole script; ``only`` (``"data_parallel"``, ``"aot_serve"``,
-    ``"train"``, ``"trained_e2e"``, ``"image_io"``, ``"from_disk"`` or
-    ``"spatial"``, which
+    ``"train"``, ``"trained_e2e"``, ``"image_io"``, ``"from_disk"``,
+    ``"bench"`` or ``"spatial"``, which
     calibrates its int8 model first) runs the device line, the build and that phase alone
     (for work on it), and prints no result."""
     import torch
@@ -3445,6 +3628,9 @@ def main(only: str = None) -> int:
         return 0
     if only == "from_disk":
         phase_from_disk(Path(__file__).resolve().parent / "build" / "chip_smoke_from_disk", smi)
+        return 0
+    if only == "bench":
+        phase_bench(smi)
         return 0
     if only == "spatial":
         from streamyolo_torch.exp import get_exp
@@ -3692,6 +3878,9 @@ def main(only: str = None) -> int:
     # 11. data-parallel training: two rank processes (B1 in each rank's eval)
     dp = phase_data_parallel(root / "chip_smoke_dp", smi)
 
+    # 12. the measuring tools at full width (B1, B2 and the int8 conv)
+    bench_launches = phase_bench(smi)
+
     # B1 at the serving shapes: the candidates of a real steady step
     with torch.inference_mode():
         preds, _ = model(img_host.to(torch.bfloat16), buffer=host._buffer, mode="on_pipe")
@@ -3748,7 +3937,7 @@ def main(only: str = None) -> int:
          "replaces": "streamyolo_tpu/ops/nms_pallas.py:26",
          "launches": launches["nms"] + spatial["nms"] + sum(graph_launches("nms").values())
          + sum(c["nms"] for c in image_io.values())
-         + sum(c["nms"] for c in from_disk.values()),
+         + sum(c["nms"] for c in from_disk.values()) + bench_launches["nms"],
          "max_abs_err": nms_err, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "max_abs_diff_vs_plain": nms_err, "kernel_ms": b1_ms,
@@ -3767,6 +3956,7 @@ def main(only: str = None) -> int:
                               **{f"image_io_{k}": c["nms"] for k, c in image_io.items()},
                               **{f"from_disk_{k}": c["nms"] for k, c in from_disk.items()},
                               "data_parallel_eval_by_rank": dp["launches_by_rank"],
+                              "bench": bench_launches["nms"],
                               **graph_launches("nms")},
          "graph_launches": graph_note,
          "eval_k1000": offline["times"],
@@ -3780,7 +3970,7 @@ def main(only: str = None) -> int:
          "replaces": "streamyolo_tpu/ops/preproc_pallas.py:33",
          "launches": launches["preproc"] + sum(graph_launches("preproc").values())
          + sum(c["preproc"] for c in image_io.values())
-         + sum(c["preproc"] for c in from_disk.values()),
+         + sum(c["preproc"] for c in from_disk.values()) + bench_launches["preproc"],
          "max_abs_err": pre_err, "ms": b2_ms,
          "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
          "library_ms": b2_lib_ms, "max_abs_diff_vs_plain": pre_err, "kernel_ms": b2_ms,
@@ -3798,12 +3988,13 @@ def main(only: str = None) -> int:
                               "spatial_n8_float32": spatial["preproc"],
                               **{f"image_io_{k}": c["preproc"] for k, c in image_io.items()},
                               **{f"from_disk_{k}": c["preproc"] for k, c in from_disk.items()},
+                              "bench": bench_launches["preproc"],
                               **graph_launches("preproc")},
          "graph_launches": graph_note},
         {"name": "int8_conv", "route": "cuda", "source": "streamyolo_torch/csrc/int8_conv.cu",
          "replaces": "streamyolo_tpu/nn/blocks.py:123",
          "launches": int8["launches"]["int8_conv"] + spatial["int8_conv"]
-         + sum(graph_launches("int8_conv").values()),
+         + sum(graph_launches("int8_conv").values()) + bench_launches["int8_conv"],
          "max_abs_err": 0.0,
          "ms": int8["whole"]["ms"], "plain_ms": int8["whole"]["plain_ms"],
          "bound_ms": int8["whole"]["bound_ms"], "bound_by": int8["whole"]["bound_by"],
@@ -3821,6 +4012,7 @@ def main(only: str = None) -> int:
                               "int8_eval_calib_few":
                                   trained["eval_int8_calib_few"]["int8_conv"],
                               "spatial_int8_n8": spatial["int8_conv"],
+                              "bench": bench_launches["int8_conv"],
                               **graph_launches("int8_conv")},
          "graph_launches": graph_note},
     ]
@@ -3840,6 +4032,6 @@ if __name__ == "__main__":
         sys.exit(aot_serve_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in (
             "data_parallel", "aot_serve", "train", "trained_e2e", "spatial", "image_io",
-            "from_disk"):
+            "from_disk", "bench"):
         sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from streamyolo_torch.ops.int8_conv import int8_conv
+from streamyolo_torch.ops.int8_conv import int8_conv, int8_conv_plain
 from streamyolo_torch.parallel.multihost import all_reduce_sum_, get_rank, get_world_size
 
 BN_EPS = 1e-3
@@ -192,8 +192,11 @@ class BaseConv(nn.Module):
                 "quantized conv has zero gradient, so training through it would "
                 "silently learn nothing — fine-tune with the fp variables and "
                 "re-quantize")
-        y = int8_conv(x, self.kernel_q, self.w_scale, self.act_scale,
-                      stride=self.conv.stride[0], groups=self.conv.groups)
+        # meta tensors (tools/measure.py counts work on them) take the plain
+        # version's shapes; a card launches the kernel, the CPU its plain version
+        conv = int8_conv_plain if x.device.type == "meta" else int8_conv
+        y = conv(x, self.kernel_q, self.w_scale, self.act_scale,
+                 stride=self.conv.stride[0], groups=self.conv.groups)
         return self.act(self.bn(y))
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
