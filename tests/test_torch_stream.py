@@ -4,10 +4,18 @@ obj/cls prediction biases lifted to 0 (so NMS has candidates), fp32, star
 then steady frames. Boxes atol 1e-3 (pixels / in_scale), scores atol 1e-5;
 labels and the kept sets must be equal.
 
+The float64 anchor (ROADMAP C.5): that bound sits at float32's own noise
+on this random model, so each package's float32 decoded candidates are also
+held to the port's float64 over every anchor it scores above conf: boxes
+within 2.5e-3 raw px, scores within 2.5e-6, about twice the largest gap of
+either package at either thread count (1.03-1.33e-3 px, 0.67-1.14e-6:
+``python -m tests.torch_detector_noise``).
+
 Also: the default device raises without a GPU, and no file of the port (nor
 ``chip_smoke.py``) imports jax, flax or the JAX package."""
 
 import ast
+import copy
 import logging
 import os
 from pathlib import Path
@@ -71,6 +79,43 @@ def test_stream_detector_matches_tpu_detector(models, device_preproc):
     assert det.n_saturated == ref.n_saturated
     # CPU tensors take the plain versions: no kernel launch
     assert (nms_keep.launches, downsample2x.launches) == launches
+
+
+def test_fp32_within_float64_anchor(models):
+    jmodel, variables, port = models
+    frames = [np.random.RandomState(2).randint(0, 256, (1, *INPUT, 3), np.uint8)
+              for _ in range(4)]
+    # one program for every frame: the star frame fuses with itself through
+    # star_mask, as a buffer of None makes it
+    apply = jax.jit(lambda v, x, b, star: jmodel.apply(
+        v, x.astype(jnp.float32), buffer=b, mode="on_pipe", star_mask=star))
+    buf = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), jax.eval_shape(
+        lambda v, x: jmodel.apply(v, x.astype(jnp.float32), mode="on_pipe")[1],
+        variables, frames[0]))
+    preds = {"jax": [], "port": [], "port64": []}
+    for i, x in enumerate(frames):
+        y, buf = apply(variables, x, buf, jnp.array([i == 0]))
+        preds["jax"].append(np.asarray(y[0], np.float64))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny ops: the suite's workers would contend for the cores
+    try:
+        for name, dtype in (("port", torch.float32), ("port64", torch.float64)):
+            model, buf = copy.deepcopy(port).to(dtype), None
+            with torch.inference_mode():
+                for x in frames:
+                    y, buf = model(torch.from_numpy(x).to(dtype), buffer=buf, mode="on_pipe")
+                    preds[name].append(y[0].double().numpy())
+    finally:
+        torch.set_num_threads(threads)
+    preds = {k: np.stack(v) for k, v in preds.items()}
+    ref = preds["port64"]
+    keep = ref[..., 4] * ref[..., 5:].max(-1) > KW["conf_thre"]
+    assert keep.sum() > 100
+    for name in ("jax", "port"):
+        box = np.abs(preds[name][keep][:, :4] - ref[keep][:, :4]).max() / KW["in_scale"]
+        score = np.abs(preds[name][keep][:, 4] * preds[name][keep][:, 5:].max(-1)
+                       - ref[keep][:, 4] * ref[keep][:, 5:].max(-1)).max()
+        assert box <= 2.5e-3 and score <= 2.5e-6, (name, box, score)
 
 
 def test_buffer_is_reused_in_place(models):

@@ -4,14 +4,20 @@ JAX init from key 1, obj/cls biases lifted to 0, 64x96, fp32) runs a star
 and three steady ``on_pipe`` frames in five fresh processes: the JAX
 package at its default thread count and at one thread, the port likewise,
 and the port in float64. Each pair is compared on the decoded boxes (raw
-pixels: model pixels / ``in_scale`` 0.5, as the detectors return them) and
+pixels: model pixels / ``in_scale``, as the detectors return them) and
 scores of every anchor the float64 run scores above the detectors' conf
 0.01.
 
-    python -m tests.torch_detector_noise
+``--trained``: the same five runs on the trained fixture
+(``tests/torch_trained/``: ``chip_smoke.py``'s ``E2E_CONFIG`` model with
+the fixture's weights, its 8 streams of a star and 7 steady frames of the
+synthetic video at 150x240, each stream from a fresh star).
+
+    python -m tests.torch_detector_noise [--trained]
 
 prints one JSON line: per pair, the worst box gap (px) and score gap over
-the four frames, and per frame. A measurement, not a test."""
+the frames, and per frame (the random model's four only). A measurement,
+not a test."""
 
 import json
 import os
@@ -36,13 +42,13 @@ def frames():
     return [rng.randint(0, 256, (1, *INPUT, 3), np.uint8) for _ in range(FRAMES)]
 
 
-def run_child(kind: str, out: str) -> None:
-    """The decoded outputs [FRAMES, anchors, 13] of one run, saved to ``out``."""
+def random_models():
+    """The random model of ``tests/test_torch_stream.py``: the flax module,
+    its variables, a function building the port's copy, and its one stream
+    of frames."""
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_matmul_precision", "highest")
     from streamyolo_tpu.models import DFPPAFPN as JDFPPAFPN
     from streamyolo_tpu.models import StreamYOLO as JStreamYOLO
     from streamyolo_tpu.models import TALHead as JTALHead
@@ -53,46 +59,80 @@ def run_child(kind: str, out: str) -> None:
     init = jax.jit(lambda key, x: jmodel.init(key, x, mode="off_pipe"))
     variables = lift_pred_biases(jax.tree_util.tree_map(
         np.asarray, init(jax.random.PRNGKey(1), jnp.zeros((1, *INPUT, 6), jnp.float32))))
+
+    def port():
+        from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
+
+        return load_port(StreamYOLO(DFPPAFPN(0.33, 0.25), TALHead(num_classes=8, width=0.25)),
+                         variables)
+
+    return jmodel, variables, port, [frames()]
+
+
+def trained_models():
+    """The trained fixture's flax module (float32), its variables, a
+    function building the port's copy, and the streams of frames
+    preprocessed to 150x240."""
+    from streamyolo_torch.data.cv2_ops import resize_u8
+
+    from . import torch_trained_fixture as fixture
+    from .torch_port_helpers import chip_smoke
+
+    smoke = chip_smoke()
+    size = smoke.trained_exp().test_size
+    streams = [[resize_u8(f, *size)[None] for f in stream] for stream in smoke.trained_streams()]
+    return (fixture.jax_model(False), fixture.jax_variables(),
+            lambda: smoke.trained_model(None, "cpu"), streams)
+
+
+def run_child(kind: str, out: str, trained: bool) -> None:
+    """The decoded outputs [frames, anchors, 13] of one run, saved to ``out``."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    jmodel, variables, port_model, streams = trained_models() if trained else random_models()
     outs = []
     if kind == "jax":
-        buf = None
-        for x in frames():
-            y, buf = jmodel.apply(variables, jnp.asarray(x, jnp.float32), buffer=buf,
-                                  mode="on_pipe")
-            outs.append(np.asarray(y[0], np.float64))
+        for stream in streams:
+            buf = None
+            for x in stream:
+                y, buf = jmodel.apply(variables, jnp.asarray(x, jnp.float32), buffer=buf,
+                                      mode="on_pipe")
+                outs.append(np.asarray(y[0], np.float64))
     else:
         import torch
 
-        from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
-
-        port = load_port(StreamYOLO(DFPPAFPN(0.33, 0.25), TALHead(num_classes=8, width=0.25)),
-                         variables).eval()
         dtype = torch.float64 if kind == "port64" else torch.float32
-        port = port.to(dtype)
-        buf = None
+        port = port_model().eval().to(dtype)
         with torch.inference_mode():
-            for x in frames():
-                y, buf = port(torch.from_numpy(x).to(dtype), buffer=buf, mode="on_pipe")
-                outs.append(y[0].double().numpy())
+            for stream in streams:
+                buf = None
+                for x in stream:
+                    y, buf = port(torch.from_numpy(x).to(dtype), buffer=buf, mode="on_pipe")
+                    outs.append(y[0].double().numpy())
     np.save(out, np.stack(outs))
 
 
-def gaps(a: np.ndarray, b: np.ndarray, ref: np.ndarray) -> dict:
+def gaps(a: np.ndarray, b: np.ndarray, ref: np.ndarray, per_frame: bool) -> dict:
     """Worst |box| (raw px) and |score| gaps of ``a`` and ``b`` over the
     anchors that ``ref`` scores above ``CONF``, per frame."""
     score = lambda o: o[..., 4] * o[..., 5:].max(-1)  # noqa: E731
-    per_frame = []
-    for f in range(FRAMES):
+    frames_ = []
+    for f in range(len(ref)):
         keep = score(ref[f]) > CONF
-        per_frame.append({
+        frames_.append({
             "anchors": int(keep.sum()),
             "box_px": float(np.abs(a[f, keep, :4] - b[f, keep, :4]).max() / IN_SCALE),
             "score": float(np.abs(score(a[f])[keep] - score(b[f])[keep]).max())})
-    return {"box_px_max": max(p["box_px"] for p in per_frame),
-            "score_max": max(p["score"] for p in per_frame), "per_frame": per_frame}
+    out = {"box_px_max": max(p["box_px"] for p in frames_),
+           "score_max": max(p["score"] for p in frames_),
+           "anchors": sum(p["anchors"] for p in frames_)}
+    return {**out, "per_frame": frames_} if per_frame else out
 
 
-def main() -> None:
+def main(trained: bool) -> None:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     outs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -105,15 +145,18 @@ def main() -> None:
                 env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
             path = os.path.join(tmp, name + ".npy")
             subprocess.run([sys.executable, "-m", "tests.torch_detector_noise", "--child",
-                            kind, path], cwd=repo, env=env, check=True)
+                            kind, path, *(["--trained"] if trained else [])],
+                           cwd=repo, env=env, check=True)
             outs[name] = np.load(path)
     ref = outs["port_float64"]
-    print(json.dumps({"threads_default": os.cpu_count(),
-                      "pairs": {f"{a} vs {b}": gaps(outs[a], outs[b], ref) for a, b in PAIRS}}))
+    print(json.dumps({"model": "trained fixture" if trained else "random",
+                      "threads_default": os.cpu_count(),
+                      "pairs": {f"{a} vs {b}": gaps(outs[a], outs[b], ref, not trained)
+                                for a, b in PAIRS}}))
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--child":
-        run_child(sys.argv[2], sys.argv[3])
+    if len(sys.argv) >= 4 and sys.argv[1] == "--child":
+        run_child(sys.argv[2], sys.argv[3], sys.argv[4:] == ["--trained"])
     else:
-        main()
+        main(sys.argv[1:] == ["--trained"])

@@ -1,9 +1,12 @@
 """Shared pieces of the ``test_torch_*.py`` parity tests: JAX variables with
 non-trivial BatchNorm statistics, their conversion into the PyTorch port,
-the textured Argoverse-HD fixture of the eval tests, and the guard for tests
-that need a CUDA card."""
+the textured Argoverse-HD fixture of the eval tests, the box matcher of two
+detectors' rows, and the guard for tests that need a CUDA card."""
 
 from __future__ import annotations
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -72,6 +75,31 @@ def tiny_model(dtype):
         for m in list(model.head.obj_preds) + list(model.head.cls_preds):
             m.bias.zero_()
     return model.to(device="cuda", dtype=dtype).eval()
+
+
+def chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (its shared
+    constants and comparison helpers import nothing but numpy)."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as module
+
+    return module
+
+
+def matched_rows(blocks, blocks_ref, iou_min: float = 0.9) -> dict:
+    """The kept rows of two detectors' ``[..., K, 8]`` row blocks (one
+    frame per block, in C order) box-matched within each (frame, class) by
+    ``chip_smoke.py::matched_rows``'s rule, which the card's checks use:
+    the reference rows in score order each take the other run's unmatched
+    row of the highest IoU if it is >= ``iou_min``. Returns the pairs, the
+    rows left unmatched on either side and their share of both runs' rows,
+    and the matched pairs' largest box gap (px of the blocks) and score gap
+    (obj x cls)."""
+    module = chip_smoke()
+    return module.matched_rows(module.block_rows(np.asarray(blocks)),
+                               module.block_rows(np.asarray(blocks_ref)), iou_min)
 
 
 def require_cuda():
