@@ -10,11 +10,12 @@ decode of the card against the CPU's, serves StreamYOLO-l at 600x960
 through ``CUDAStreamDetector`` (host path and ``device_preproc``) with
 random weights from a seed, checks the outputs (the card's fp32 step against
 the CPU, bf16 against fp32), reads frames from disk without cv2 (phase
-``image_io``: ``tests/torch_jpeg``'s JPEGs (baseline, progressive and
-multi-scan) and PNGs decoded and the JPEGs resized and encoded by the
-port's native code against cv2's digests, the host path against
-``device_preproc`` bit for bit, ``stream_det`` and ``offline_det`` reading
-the frames from disk, ``offline_det`` from the progressive frames with the
+``image_io``: ``tests/torch_jpeg``'s JPEGs (baseline, progressive,
+multi-scan, arithmetic-coded, lossless, CMYK, YCCK and RGB-coded) and PNGs
+decoded and the JPEGs resized and encoded by the port's native code against
+cv2's digests, the host path against ``device_preproc`` bit for bit,
+``stream_det`` and ``offline_det`` reading the frames from disk,
+``offline_det`` from the progressive and the arithmetic frames with the
 baseline frames' rows), and times the step and each kernel with CUDA
 events, one call at a time and back to back. Then it serves 8 camera streams
 through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
@@ -3338,10 +3339,14 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     every committed fixture of ``tests/torch_jpeg`` decodes, and each
     1200x1920 frame resizes to 600x960 and 601x959, to the bytes whose
     digests cv2 wrote there (the progressive and multi-scan fixtures of
-    ``progressive/`` included; its three progressive frames to the
-    baseline frames' digests); the decode and resize times (median of
-    ``IMAGE_IO_TIMED``, the NumPy twin once; a progressive frame's decode
-    beside the baseline frame's); StreamYOLO-l at 600x960, bf16,
+    ``progressive/`` and the arithmetic-coded, lossless, CMYK, YCCK and
+    RGB-coded ones of ``codings/`` included; their 1200x1920 progressive and
+    arithmetic frames to the baseline frames' digests; frame 0 made a CMYK
+    and a YCCK frame by ``tests/torch_jpeg_codings.py::four_component_frame``
+    to cv2's ``derived`` digests); the decode and resize times (median of
+    ``IMAGE_IO_TIMED``, the NumPy twin once; a progressive, an arithmetic
+    (SOF9 and SOF10) and the CMYK frame's decode beside the baseline
+    frame's); StreamYOLO-l at 600x960, bf16,
     the seeded weights of ``EVAL_CONFIG``, over the three frames (a star and
     two steady): ``CUDAStreamDetector``'s host path against
     ``device_preproc`` rows bit for bit, ``MultiStreamDetector(3)`` fed the
@@ -3349,8 +3354,8 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     frames as one sequence from disk (``db_from_img_folder``) through
     ``stream_det`` under the wall clock and with ``--infinite``, and
     ``offline_det``, host path, no ``load_frame``, and ``offline_det`` again
-    from the folder of progressive frames, whose rows must equal the
-    baseline folder's bit for bit. Kernel launches are counted from 0 before
+    from the folders of progressive and of arithmetic frames, whose rows
+    must equal the baseline folder's bit for bit. Kernel launches are counted from 0 before
     each run and read after it. ``device="cpu"`` rehearses the phase
     without a card."""
     import torch
@@ -3363,6 +3368,7 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     from streamyolo_torch.ops.preproc import downsample2x
     from streamyolo_torch.stream import CUDAStreamDetector, MultiStreamDetector, add_to_runtime_zoo
     from streamyolo_torch.tools import offline_det, stream_det
+    from tests.torch_jpeg_codings import four_component_frame
 
     t_phase = time.perf_counter()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -3387,6 +3393,18 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
         digests["decode"][rel] == digests["decode"][rel[len("progressive/"):]]
         for rel in prog_frames),
         "image_io: the progressive frames' digests are not the baseline frames'")
+    codings = sorted(rel for rel in digests["decode"] if rel.startswith("codings/"))
+    arith_frames = [rel for rel in codings if rel.startswith("codings/frames/")]
+    check(len(arith_frames) == 3 and all(
+        digests["decode"][rel] == digests["decode"][rel[len("codings/"):]]
+        for rel in arith_frames),
+        "image_io: the arithmetic frames' digests are not the baseline frames'")
+    # frame 0 as a 4-component (CMYK, YCCK) frame, against cv2's digests
+    four = {name: four_component_frame((JPEG_FIXTURES / sorted(frames)[0]).read_bytes(), t)
+            for name, t in (("cmyk_frame", 0), ("ycck_frame", 2))}
+    for name, data in four.items():
+        check(image_digest(imdecode(data)) == digests["derived"][name],
+              f"image_io: the {name} decodes to other bytes than cv2's")
     # the encoder: each frame at quality 90 and 95 to cv2.imencode's bytes
     for rel, by_quality in sorted(digests["encode"].items()):
         for key, want in by_quality.items():
@@ -3402,10 +3420,17 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     first = sorted(frames)[0]
     data = (JPEG_FIXTURES / first).read_bytes()
     prog_data = (JPEG_FIXTURES / prog_frames[0]).read_bytes()
+    arith_data = (JPEG_FIXTURES / arith_frames[0]).read_bytes()
+    arith_prog_data = (JPEG_FIXTURES / arith_frames[2]).read_bytes()
+    check(b"\xff\xc9" in arith_data and b"\xff\xca" in arith_prog_data,
+          "image_io: the arithmetic frames are not SOF9 and SOF10")
     times = {"decode_ms": host_ms(lambda: imdecode(data)),
              "imread_ms": host_ms(lambda: imread(JPEG_FIXTURES / first)),
              "progressive_decode_ms": host_ms(lambda: imdecode(prog_data)),
              "progressive_imread_ms": host_ms(lambda: imread(JPEG_FIXTURES / prog_frames[0])),
+             "arithmetic_decode_ms": host_ms(lambda: imdecode(arith_data)),
+             "arithmetic_progressive_decode_ms": host_ms(lambda: imdecode(arith_prog_data)),
+             "cmyk_decode_ms": host_ms(lambda: imdecode(four["cmyk_frame"])),
              **{f"resize_{h}x{w}_ms": host_ms(lambda: resize_u8(raws[0], h, w))
                 for h, w in IMAGE_IO_SIZES}}
     t = time.perf_counter()
@@ -3498,6 +3523,17 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
           and launches["offline_det_progressive"] == {"nms": k, "preproc": 0},
           "image_io: offline_det from the progressive frames: rows differ from the baseline "
           f"folder's, or launches {launches['offline_det_progressive']}")
+    arith_root = JPEG_FIXTURES / "codings" / "frames"
+    arith_annot = out_dir / "arithmetic_frames.json"
+    check(db_from_img_folder(str(arith_root), out_path=str(arith_annot))["images"]
+          == db["images"],
+          "image_io: db_from_img_folder of the arithmetic frames differs from the baseline's")
+    off_arith = cli("offline_det_arithmetic", offline_det, "--no-eval",
+                    "--data-root", str(arith_root), "--annot-path", str(arith_annot))
+    check(off_arith["results_ccf"] == off["results_ccf"]
+          and launches["offline_det_arithmetic"] == {"nms": k, "preproc": 0},
+          "image_io: offline_det from the arithmetic frames: rows differ from the baseline "
+          f"folder's, or launches {launches['offline_det_arithmetic']}")
     wall = run_summary(out_dir / "wall", 1)
     check(wall["processed"] >= 1 and launches["wall"]["preproc"] == 0,
           f"image_io: stream_det from disk: {wall}, launches {launches['wall']}")
@@ -3513,18 +3549,24 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     cv2_loaded = sys.modules.get("cv2") is not None
     check(not cv2_loaded, "image_io: cv2 was imported")
     emit("image_io", fixtures=len(digests["decode"]), png_fixtures=len(digests["png"]),
-         progressive_fixtures=len(progressive),
+         progressive_fixtures=len(progressive), codings_fixtures=len(codings),
          encodes=sum(len(v) for v in digests["encode"].values()), digests_equal=True,
-         progressive_frames_equal_baseline=True,
+         progressive_frames_equal_baseline=True, arithmetic_frames_equal_baseline=True,
+         four_component_frames_equal_cv2=sorted(four),
          frame="1200x1920 baseline 4:2:0 q90 (the JAX generator's)",
          progressive_frame="the same pixels, cv2's progressive script at q90",
+         arithmetic_frames="the baseline frames' coefficients arithmetic-coded: SOF9, SOF9 "
+                           "with DAC and restarts, SOF10 (libjpeg's progressive script)",
+         cmyk_frame="frame 0 with a fourth component (a second scan, K 128) and Adobe "
+                    "transform 0",
          times=times, nvidia_smi=smi,
          model=f"StreamYOLO-{MODEL_SIZE}", input=list(INPUT), dtype="bfloat16",
          host_rows_equal_device_preproc=True, multi_stream_raw_equal_preprocessed=True,
          kept_rows=kept, stream_det_wall=wall,
          infinite_results=len(inf["seq00"]["timestamps"]),
          offline_detections=len(off["results_ccf"]),
-         offline_det_progressive_rows_equal=True, cli_s=cli_s, launches=launches,
+         offline_det_progressive_rows_equal=True, offline_det_arithmetic_rows_equal=True,
+         cli_s=cli_s, launches=launches,
          cv2_loaded=cv2_loaded, seconds=time.perf_counter() - t_phase)
     return launches
 

@@ -2,9 +2,10 @@
 package's ``cv2.imread`` / ``cv2.imwrite``, for a host (the card's) that has
 no cv2, PIL or torchvision.
 
-  * ``imdecode(buf)``: JPEG (baseline, extended sequential, progressive,
-    one scan or several) or PNG bytes -> [H, W, 3] BGR uint8, equal bit for
-    bit to ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``;
+  * ``imdecode(buf)``: JPEG (baseline, extended sequential, progressive
+    or lossless, Huffman- or arithmetic-coded, one scan or several; gray,
+    YCbCr, RGB, CMYK or YCCK) or PNG bytes -> [H, W, 3] BGR uint8, equal
+    bit for bit to ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``;
   * ``imread(path)``: the file's bytes through ``imdecode``, equal to
     ``cv2.imread(path)``;
   * ``image_size(path)``: (height, width) of what ``imread`` returns, from
@@ -17,21 +18,27 @@ no cv2, PIL or torchvision.
 
 The codecs are native (``native/image_io.cpp``, built with ``g++`` at first
 use). The JPEG decoder transcribes libjpeg-turbo's default decompression, as
-cv2 runs it (the islow IDCT, fancy upsampling, its YCbCr -> RGB tables); it
-reads Huffman-coded files of 1 or 3 components at 8 bits, any integral
-sampling factors, restart intervals and files without a DHT (libjpeg's
-standard tables): baseline and extended sequential (SOF0 / SOF1) with one
-scan or several (a scan of part of the components), and progressive
-(SOF2: spectral selection and successive approximation, libjpeg's block
-smoothing where the last refinement scans are missing). A file read in
-several scans goes through a whole-image coefficient buffer, as in
-libjpeg. Lossless, hierarchical and arithmetic-coded files, 12-bit
-samples, CMYK, an RGB-coded file and scan parameters libjpeg refuses
-raise ``OSError`` naming them. Where libjpeg meets corrupt or truncated
-entropy-coded data it warns, fills the rest with zeros and returns an
-image; ``imdecode`` raises ``OSError`` instead. The encoder transcribes
-libjpeg-turbo's default compression (baseline, 4:2:0 for colour, standard
-Huffman tables, JFIF 1.01).
+cv2 runs it (the islow IDCT, fancy upsampling, its colour conversions); it
+reads files of 1, 3 or 4 components at 8 bits, any integral sampling
+factors, restart intervals and files without a DHT (libjpeg's standard
+tables): baseline and extended sequential (SOF0 / SOF1) with one scan or
+several (a scan of part of the components), progressive (SOF2: spectral
+selection and successive approximation, libjpeg's block smoothing where the
+last refinement scans are missing), the same two arithmetic-coded (SOF9 /
+SOF10: jdarith.c's QM decoder, a DAC segment's conditioning) and lossless
+frames (SOF3: predictors 1-7, point transforms, 2 to 8 bits, replicated
+upsampling). A file read in several scans goes through a whole-image
+coefficient buffer, as in libjpeg. The colour space is libjpeg's: a JFIF
+segment, an Adobe segment's transform or the component ids make three
+components YCbCr or RGB and four CMYK or YCCK, and CMYK becomes BGR as
+OpenCV converts it. Lossless arithmetic-coded and hierarchical files,
+12-bit samples, lossless gray, YCbCr and YCCK frames (libjpeg converts no
+colour in lossless mode), 2 or 5 components and scan parameters libjpeg
+refuses raise ``OSError`` naming them, as cv2 returns None for them. Where
+libjpeg meets corrupt or truncated entropy-coded data it warns, fills the
+rest with zeros and returns an image; ``imdecode`` raises ``OSError``
+instead. The encoder transcribes libjpeg-turbo's default compression
+(baseline, 4:2:0 for colour, standard Huffman tables, JFIF 1.01).
 
 PNG writing is what cv2's defaults do with libpng: 8-bit RGB or gray, the
 Sub filter on every row (None on rows of one pixel), a ``zlib`` stream at level 1 with the run-length
@@ -212,9 +219,9 @@ def _png_decode(buf: bytes) -> np.ndarray:
 
 
 def imdecode(buf: bytes) -> np.ndarray:
-    """Baseline JPEG or PNG bytes -> [H, W, 3] BGR uint8, as
+    """JPEG or PNG bytes -> [H, W, 3] BGR uint8, as
     ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``; ``OSError`` where the data is
-    not such a file or is corrupt."""
+    not such a file, is a kind cv2 does not read, or is corrupt."""
     buf = bytes(buf)
     if buf.startswith(_PNG_SIGNATURE):
         return _png_decode(buf)

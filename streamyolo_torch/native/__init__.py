@@ -5,7 +5,8 @@
     ``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the
     greedy track association of ``stream/track.py``) and ``bbox_iou_ltwh``;
   * ``streamyolo_torch/native/image_io.cpp``: ``jpeg_header`` /
-    ``jpeg_decode`` (sequential and progressive JPEG, bit-exact with
+    ``jpeg_decode`` (sequential, progressive and lossless JPEG, Huffman- or
+    arithmetic-coded, gray, YCbCr, RGB, CMYK or YCCK, bit-exact with
     ``cv2.imread``),
     ``jpeg_encode`` (byte-exact with ``cv2.imencode('.jpg')``),
     ``png_data_size`` / ``png_decode`` (a PNG's inflated pixel data, as

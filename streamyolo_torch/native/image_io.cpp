@@ -1,18 +1,24 @@
 // Host image IO of the PyTorch port, with no dependency:
 //
-//   * jpeg_header / jpeg_decode: a JPEG decoder (8-bit, Huffman, 1 or 3
-//     components) equal bit for bit to libjpeg-turbo's default
-//     decompression, which is what cv2.imread(path, IMREAD_COLOR) runs: the
-//     "islow" integer IDCT (jidctint.c), fancy upsampling (jdsample.c), the
-//     YCbCr -> RGB tables of jdcolor.c, written as BGR. A one-scan
-//     sequential file (SOF0 / SOF1) is decoded block by block as it is
-//     read; a progressive one (SOF2) or one whose scans hold part of the
-//     components goes scan by scan through a whole-image coefficient buffer
-//     up to EOI (jdcoefct.c, jdphuff.c, jdhuff.c), then through the IDCT,
-//     block-smoothed where its last refinement scans are missing. Lossless,
-//     hierarchical and arithmetic-coded frames, 12-bit samples, CMYK and
-//     RGB-coded files are refused. The Exif orientation is returned by
-//     jpeg_header and applied by the caller.
+//   * jpeg_header / jpeg_decode: a JPEG decoder (8-bit DCT or 2- to 8-bit
+//     lossless frames, Huffman or arithmetic coding, 1, 3 or 4 components)
+//     equal bit for bit to libjpeg-turbo's default decompression, which is
+//     what cv2.imread(path, IMREAD_COLOR) runs: the "islow" integer IDCT
+//     (jidctint.c), fancy upsampling (jdsample.c), the colour conversions of
+//     jdcolor.c written as BGR, and OpenCV's CMYK -> BGR. A one-scan
+//     sequential file (SOF0 / SOF1 / SOF9) is decoded block by block as it
+//     is read; a progressive one (SOF2 / SOF10) or one whose scans hold part
+//     of the components goes scan by scan through a whole-image coefficient
+//     buffer up to EOI (jdcoefct.c), then through the IDCT, block-smoothed
+//     where its last refinement scans are missing. Under both, a scan's
+//     entropy decoder is Huffman (jdhuff.c, jdphuff.c) or arithmetic
+//     (jdarith.c). A lossless file (SOF3) is undifferenced scan by scan
+//     into the planes (jdlhuff.c, jdlossls.c, jddiffct.c). The colour space
+//     follows jdapimin.c (JFIF, Adobe transform, component ids). Lossless
+//     arithmetic-coded and hierarchical frames, 12-bit samples and the
+//     colour conversions libjpeg refuses in lossless mode are refused, as
+//     cv2 refuses them. The Exif orientation is returned by jpeg_header and
+//     applied by the caller.
 //   * jpeg_encode: libjpeg-turbo's default compression, which is what
 //     cv2.imencode('.jpg') runs, byte for byte: jpeg_set_quality's tables,
 //     the YCbCr tables of jccolor.c, 4:2:0 by jcsample.c's h2v2_downsample,
@@ -107,8 +113,9 @@ struct Huffman {
 
 constexpr int kLookBits = 9;
 
-// jdhuff.c jpeg_make_d_derived_tbl
-void derive(Huffman& t, bool is_dc) {
+// jdhuff.c jpeg_make_d_derived_tbl (a DC table's values are checked where
+// a scan uses it, by huffman_table)
+void derive(Huffman& t) {
   int count = 0;
   for (int l = 1; l <= 16; ++l) count += t.bits[l];
   if (count > 256) fail("bad Huffman table: more than 256 codes");
@@ -147,19 +154,16 @@ void derive(Huffman& t, bool is_dc) {
         t.look[first + k] = (uint16_t)((l << 8) | t.vals[p]);
     }
   }
-  if (is_dc)
-    for (int i = 0; i < count; ++i)
-      if (t.vals[i] > 15) fail("bad Huffman table: DC category above 15");
   t.defined = true;
 }
 
 // jstdhuff.c: the tables libjpeg-turbo supplies for slots 0 and 1 when a
 // file has no DHT (Motion-JPEG frames)
-void set_std(Huffman& t, const uint8_t* bits, const uint8_t* vals, bool is_dc) {
+void set_std(Huffman& t, const uint8_t* bits, const uint8_t* vals) {
   int count = 0;
   for (int l = 1; l <= 16; ++l) count += (t.bits[l] = bits[l - 1]);
   std::memcpy(t.vals, vals, count);
-  derive(t, is_dc);
+  derive(t);
 }
 
 const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
@@ -409,14 +413,14 @@ void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out, int str
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;  // sampling factors, quant table slot
-  int td = 0, ta = 0;                // Huffman slots (from SOS)
   int dw = 0, dh = 0;                // downsampled_width / _height
   int stride = 0, rows = 0;          // plane size, MCU padded
   std::vector<uint8_t> plane;
 };
 
 // One SOS segment: its components (frame indices, in scan order), their
-// Huffman slots, the spectral band and the successive-approximation bits
+// entropy table slots, the spectral band (a lossless scan's predictor in
+// Ss) and the successive-approximation bits (its point transform in Al)
 struct Scan {
   int ns = 0;
   int comp[4] = {0, 0, 0, 0};
@@ -424,19 +428,32 @@ struct Scan {
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
+// The colour space of the frame's components (jdapimin.c)
+enum class Colour { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+
 struct Jpeg {
-  int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
+  int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, precision = 8;
   int orientation = 0;  // Exif tag 0x0112 of the first APP1 Exif segment, 0 if none
   int restart = 0;      // DRI interval in MCUs
   bool have_frame = false, have_quant[4] = {false, false, false, false};
-  bool progressive = false;  // SOF2
-  int adobe_transform = -1;
-  Component comp[3];
+  bool progressive = false;  // SOF2 / SOF10
+  bool arithmetic = false;   // SOF9 / SOF10
+  bool lossless = false;     // SOF3
+  bool saw_jfif = false;     // a JFIF APP0 segment
+  int adobe_transform = -1;  // of the last Adobe APP14 segment, -1 if none
+  // DAC conditioning by table slot (jdmarker.c get_soi's defaults)
+  uint8_t dc_l[16], dc_u[16], ac_k[16];
+  Component comp[4];
   int16_t quant[4][64];  // natural order; libjpeg keeps them as short
   Huffman dc[4], ac[4];
   Scan first;                     // the first SOS
   const uint8_t* scan = nullptr;  // first byte of the entropy-coded data
   const uint8_t* end = nullptr;
+  Jpeg() {
+    std::fill(dc_l, dc_l + 16, 0);
+    std::fill(dc_u, dc_u + 16, 1);
+    std::fill(ac_k, ac_k + 16, 5);
+  }
 };
 
 inline int u16be(const uint8_t* p) { return (p[0] << 8) | p[1]; }
@@ -470,17 +487,27 @@ std::string hex2(int m) {
   return std::string("0x") + digits[(m >> 4) & 15] + digits[m & 15];
 }
 
-void parse_sof(Jpeg& j, const uint8_t* s, int len) {
+// jdmarker.c get_sof, and jdinput.c's precision check: 8 bits for a DCT
+// frame (cv2 reads no 12-bit sample), 2 to 8 for a lossless one
+void parse_sof(Jpeg& j, int m, const uint8_t* s, int len) {
   if (j.have_frame) fail("more than one frame header (SOF)");
   if (len < 6) fail("corrupt JPEG data: short SOF segment");
-  if (s[0] != 8) fail(std::to_string(s[0]) + "-bit precision is not supported (8-bit only)");
+  j.progressive = m == 0xC2 || m == 0xCA;
+  j.arithmetic = m == 0xC9 || m == 0xCA;
+  j.lossless = m == 0xC3;
+  j.precision = s[0];
+  if (j.lossless) {
+    if (s[0] < 2 || s[0] > 8)
+      fail(std::to_string(s[0]) + "-bit lossless JPEG is not supported (2 to 8 bits only)");
+  } else if (s[0] != 8) {
+    fail(std::to_string(s[0]) + "-bit precision is not supported (8-bit only)");
+  }
   j.height = u16be(s + 1);
   j.width = u16be(s + 3);
   j.ncomp = s[5];
   if (j.height == 0 || j.width == 0)
     fail("image height or width of 0 (a DNL marker) is not supported");
-  if (j.ncomp == 4) fail("4-component (CMYK / YCCK) JPEG is not supported");
-  if (j.ncomp != 1 && j.ncomp != 3)
+  if (j.ncomp != 1 && j.ncomp != 3 && j.ncomp != 4)
     fail(std::to_string(j.ncomp) + "-component JPEG is not supported");
   if (len < 6 + 3 * j.ncomp) fail("corrupt JPEG data: short SOF segment");
   for (int c = 0; c < j.ncomp; ++c) {
@@ -531,8 +558,25 @@ void parse_dht(Jpeg& j, const uint8_t* s, int len) {
     for (int l = 1; l <= 16; ++l) count += (t.bits[l] = s[o + l]);
     if (count > 256 || o + 17 + count > len) fail("corrupt JPEG data: bad DHT segment");
     std::memcpy(t.vals, s + o + 17, count);
-    derive(t, tc == 0);
+    derive(t);
     o += 17 + count;
+  }
+}
+
+// jdmarker.c get_dac: the arithmetic conditioning of DC table slots 0-15
+// (L in the low, U in the high nibble, L <= U) and AC slots 16-31 (Kx)
+void parse_dac(Jpeg& j, const uint8_t* s, int len) {
+  if (len % 2) fail("corrupt JPEG data: bad DAC segment length");
+  for (int o = 0; o < len; o += 2) {
+    const int index = s[o], val = s[o + 1];
+    if (index >= 32) fail("bad DAC segment: table index " + std::to_string(index));
+    if (index >= 16) {
+      j.ac_k[index - 16] = (uint8_t)val;
+    } else {
+      if ((val & 15) > (val >> 4)) fail("bad DAC segment: L above U (" + hex2(val) + ")");
+      j.dc_l[index] = (uint8_t)(val & 15);
+      j.dc_u[index] = (uint8_t)(val >> 4);
+    }
   }
 }
 
@@ -563,12 +607,15 @@ void parse_sos(Jpeg& j, const uint8_t* s, int len, Scan& sc) {
   sc.al = s[3 + 2 * ns] & 15;
 }
 
-// DHT, DQT, DRI and the segments skipped (APPn, COM, DNL), wherever they
-// stand; false for any other marker
+// DHT, DQT, DAC, DRI and the segments skipped (APPn, COM, DNL), wherever
+// they stand; false for any other marker
 bool table_segment(Jpeg& j, int m, const uint8_t* s, int len) {
   switch (m) {
     case 0xC4:
       parse_dht(j, s, len);
+      return true;
+    case 0xCC:
+      parse_dac(j, s, len);
       return true;
     case 0xDB:
       parse_dqt(j, s, len);
@@ -585,19 +632,11 @@ bool table_segment(Jpeg& j, int m, const uint8_t* s, int len) {
   }
 }
 
+// The frame types libjpeg-turbo refuses (JERR_SOF_UNSUPPORTED) or cannot
+// read with cv2's 8-bit calls
 [[noreturn]] void refuse_frame(int m) {
-  switch (m) {
-    case 0xC3:
-      fail("lossless JPEG (SOF3) is not supported");
-    case 0xC5:
-    case 0xC6:
-    case 0xC7:
-      fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
-    case 0xCC:
-      fail("arithmetic-coded JPEG (DAC) is not supported");
-    default:
-      fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
-  }
+  if (m == 0xCB) fail("lossless arithmetic-coded JPEG (SOF11) is not supported");
+  fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ") is not supported");
 }
 
 // Markers from SOI up to the first SOS; without `to_scan` (the header
@@ -628,21 +667,22 @@ void parse_headers(Jpeg& j, const uint8_t* buf, size_t n, bool to_scan) {
       case 0xC0:
       case 0xC1:
       case 0xC2:
-        parse_sof(j, s, len);
-        j.progressive = m == 0xC2;
-        break;
       case 0xC3:
+      case 0xC9:
+      case 0xCA:
+        parse_sof(j, m, s, len);
+        break;
       case 0xC5:
       case 0xC6:
       case 0xC7:
-      case 0xC9:
-      case 0xCA:
       case 0xCB:
-      case 0xCC:
       case 0xCD:
       case 0xCE:
       case 0xCF:
         refuse_frame(m);
+      case 0xE0:  // jdmarker.c examine_app0: a JFIF header of at least 14 bytes
+        if (len >= 14 && std::memcmp(s, "JFIF\0", 5) == 0) j.saw_jfif = true;
+        break;
       case 0xE1:
         if (!saw_exif && len >= 6 && std::memcmp(s, "Exif\0\0", 6) == 0) {
           saw_exif = true;
@@ -663,47 +703,516 @@ void parse_headers(Jpeg& j, const uint8_t* buf, size_t n, bool to_scan) {
   }
 }
 
-void check_colour(const Jpeg& j) {
-  if (j.ncomp != 3) return;
-  if (j.adobe_transform >= 0 && j.adobe_transform != 1)
-    fail("Adobe APP14 colour transform " + std::to_string(j.adobe_transform) +
-         " (RGB / YCCK) is not supported");
-  if (j.comp[0].id == 'R' && j.comp[1].id == 'G' && j.comp[2].id == 'B')
-    fail("RGB-coded JPEG is not supported");
+// jdapimin.c default_decompress_parms (libjpeg-turbo 3): a JFIF APP0 makes
+// three components YCbCr; else an Adobe APP14 transform (0: RGB, 1: YCbCr,
+// other: YCbCr with a warning); else ids 'R', 'G', 'B' RGB, and any other
+// ids YCbCr, or RGB in a lossless frame. Four components are CMYK without
+// an Adobe segment or with transform 0, YCCK with any other. In lossless
+// mode libjpeg converts no colour with loss and none from gray, so cv2's
+// BGR output refuses lossless gray, YCbCr and YCCK frames.
+Colour colour_model(const Jpeg& j) {
+  Colour c;
+  if (j.ncomp == 1) {
+    c = Colour::kGray;
+  } else if (j.ncomp == 3) {
+    if (j.saw_jfif) c = Colour::kYCbCr;
+    else if (j.adobe_transform >= 0) c = j.adobe_transform == 0 ? Colour::kRGB : Colour::kYCbCr;
+    else if (j.comp[0].id == 'R' && j.comp[1].id == 'G' && j.comp[2].id == 'B') c = Colour::kRGB;
+    else c = j.lossless ? Colour::kRGB : Colour::kYCbCr;
+  } else {
+    c = j.adobe_transform <= 0 ? Colour::kCMYK : Colour::kYCCK;
+  }
+  if (j.lossless && c != Colour::kRGB && c != Colour::kCMYK)
+    fail(std::string("lossless ") +
+         (c == Colour::kGray ? "grayscale" : c == Colour::kYCbCr ? "YCbCr" : "YCCK") +
+         " JPEG is not supported (libjpeg converts no colour in lossless mode)");
+  return c;
 }
 
 // ------------------------------------------------------------ decoding
 
 // The table of slot `slot` for a scan: libjpeg-turbo's standard tables
-// (jstdhuff.c) stand in for an empty slot 0 or 1
+// (jstdhuff.c) stand in for an empty slot 0 or 1. A DC table's values are
+// categories up to 15, or 16 in a lossless scan (jdhuff.c
+// jpeg_make_d_derived_tbl).
 const Huffman& huffman_table(Jpeg& j, bool ac, int slot) {
   const std::string kind = ac ? "AC" : "DC";
   if (slot > 3) fail(kind + " Huffman table " + std::to_string(slot) + " not defined");
   Huffman& t = ac ? j.ac[slot] : j.dc[slot];
   if (!t.defined) {
     if (slot > 1) fail(kind + " Huffman table " + std::to_string(slot) + " not defined");
-    if (ac) set_std(t, slot ? kAcChromBits : kAcLumBits, slot ? kAcChromVals : kAcLumVals, false);
-    else set_std(t, slot ? kDcChromBits : kDcLumBits, kDcVals, true);
+    if (ac) set_std(t, slot ? kAcChromBits : kAcLumBits, slot ? kAcChromVals : kAcLumVals);
+    else set_std(t, slot ? kDcChromBits : kDcLumBits, kDcVals);
+  }
+  if (!ac) {
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) count += t.bits[l];
+    for (int i = 0; i < count; ++i)
+      if (t.vals[i] > (j.lossless ? 16 : 15))
+        fail(std::string("bad Huffman table: DC category above ") + (j.lossless ? "16" : "15"));
   }
   return t;
 }
 
+// A scan's decoding mode
+enum Mode { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
+Mode scan_mode(const Jpeg& j, const Scan& sc) {
+  return !j.progressive ? kSequential
+         : sc.ss == 0   ? (sc.ah == 0 ? kDcFirst : kDcRefine)
+                        : (sc.ah == 0 ? kAcFirst : kAcRefine);
+}
+
+// One Huffman-coded scan block by block: jdhuff.c decode_mcu for a
+// sequential scan, jdphuff.c decode_mcu_DC_first / _DC_refine / _AC_first /
+// _AC_refine for a progressive one. process_restart resets the DC
+// predictors and the EOB run.
+struct HuffmanScan {
+  BitReader br;
+  Mode mode;
+  const Huffman* dct[4] = {nullptr, nullptr, nullptr, nullptr};
+  const Huffman* act[4] = {nullptr, nullptr, nullptr, nullptr};
+  int ss, se, al, p1, m1;  // p1, m1: +1 and -1 in the bit coded
+  int pred[4] = {0, 0, 0, 0};
+  unsigned eobrun = 0;
+
+  HuffmanScan(Jpeg& j, const Scan& sc, const uint8_t* p)
+      : br(p, j.end), mode(scan_mode(j, sc)), ss(sc.ss), se(sc.se), al(sc.al),
+        p1(1 << sc.al), m1((int)(~0u << sc.al)) {
+    for (int i = 0; i < sc.ns; ++i) {
+      if (mode == kSequential || mode == kDcFirst) dct[i] = &huffman_table(j, false, sc.td[i]);
+      if (mode == kSequential || mode >= kAcFirst) act[i] = &huffman_table(j, true, sc.ta[i]);
+    }
+  }
+
+  void restart(int n) {
+    br.restart(n);
+    pred[0] = pred[1] = pred[2] = pred[3] = 0;
+    eobrun = 0;
+  }
+
+  const uint8_t* position() const { return br.p; }
+
+  // a sequential block into the zeroed `coef`, for the one-pass path; true
+  // if it holds an AC coefficient
+  bool sequential_block(int i, int16_t* coef) {
+    std::memset(coef, 0, 64 * sizeof(int16_t));
+    int s = br.decode(*dct[i]);
+    if (s) pred[i] += extend(br.bits(s), s);
+    coef[0] = (int16_t)pred[i];
+    bool any_ac = false;
+    for (int z = 1; z < 64; ++z) {
+      int rs = br.decode(*act[i]);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        z += r;
+        if (z > 63) fail("corrupt JPEG data: coefficient index past 63");
+        coef[kNatural[z]] = (int16_t)extend(br.bits(s), s);
+        any_ac = true;
+      } else {
+        if (r != 15) break;
+        z += 15;
+      }
+    }
+    return any_ac;
+  }
+
+  // a block of the whole-image buffer, in the scan's mode
+  void block(int i, int16_t* b) {
+    switch (mode) {
+      case kSequential: {
+        int s = br.decode(*dct[i]);
+        if (s) pred[i] += extend(br.bits(s), s);
+        b[0] = (int16_t)pred[i];
+        for (int k = 1; k < 64; ++k) {
+          const int rs = br.decode(*act[i]), r = rs >> 4;
+          s = rs & 15;
+          if (s) {
+            k += r;
+            b[kNatural[k]] = (int16_t)extend(br.bits(s), s);
+          } else {
+            if (r != 15) break;
+            k += 15;
+          }
+        }
+        break;
+      }
+      case kDcFirst: {
+        const int s = br.decode(*dct[i]);
+        if (s) pred[i] += extend(br.bits(s), s);
+        b[0] = (int16_t)((uint32_t)pred[i] << al);
+        break;
+      }
+      case kDcRefine:
+        if (br.bits(1)) b[0] = (int16_t)(b[0] | p1);
+        break;
+      case kAcFirst:
+        if (eobrun > 0) {
+          --eobrun;
+          break;
+        }
+        for (int k = ss; k <= se; ++k) {
+          const int rs = br.decode(*act[i]), r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            b[kNatural[k]] = (int16_t)((uint32_t)extend(br.bits(s), s) << al);
+          } else if (r == 15) {
+            k += 15;
+          } else {  // EOBr: this block and 2^r - 1 + (r bits) more
+            eobrun = 1u << r;
+            if (r) eobrun += (unsigned)br.bits(r);
+            --eobrun;
+            break;
+          }
+        }
+        break;
+      case kAcRefine: {
+        // a correction bit for each coefficient with history that the
+        // run passes; a run counts only coefficients still zero
+        auto correct = [&](int16_t& t) {
+          if (br.bits(1) && (t & p1) == 0) t = (int16_t)(t >= 0 ? t + p1 : t + m1);
+        };
+        int k = ss;
+        if (eobrun == 0) {
+          for (; k <= se; ++k) {
+            const int rs = br.decode(*act[i]);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {  // a size other than 1 is a warning; libjpeg reads it as 1
+              s = br.bits(1) ? p1 : m1;
+            } else if (r != 15) {
+              eobrun = 1u << r;
+              if (r) eobrun += (unsigned)br.bits(r);
+              break;
+            }
+            do {
+              int16_t& t = b[kNatural[k]];
+              if (t != 0) correct(t);
+              else if (--r < 0) break;
+              ++k;
+            } while (k <= se);
+            if (s) b[kNatural[k]] = (int16_t)s;
+          }
+        }
+        if (eobrun > 0) {
+          for (; k <= se; ++k) {
+            int16_t& t = b[kNatural[k]];
+            if (t != 0) correct(t);
+          }
+          --eobrun;
+        }
+        break;
+      }
+    }
+  }
+};
+
+// jaricom.c jpeg_aritab: ITU-T T.81 Table D.2 packed as
+// Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; state
+// 113 is the fixed probability 0.5
+#define QM(qe, nl, nm, sw) ((int32_t(qe) << 16) | ((nm) << 8) | ((sw) << 7) | (nl))
+const int32_t kAritab[114] = {
+    QM(0x5a1d, 1, 1, 1),     QM(0x2586, 14, 2, 0),    QM(0x1114, 16, 3, 0),
+    QM(0x080b, 18, 4, 0),    QM(0x03d8, 20, 5, 0),    QM(0x01da, 23, 6, 0),
+    QM(0x00e5, 25, 7, 0),    QM(0x006f, 28, 8, 0),    QM(0x0036, 30, 9, 0),
+    QM(0x001a, 33, 10, 0),   QM(0x000d, 35, 11, 0),   QM(0x0006, 9, 12, 0),
+    QM(0x0003, 10, 13, 0),   QM(0x0001, 12, 13, 0),   QM(0x5a7f, 15, 15, 1),
+    QM(0x3f25, 36, 16, 0),   QM(0x2cf2, 38, 17, 0),   QM(0x207c, 39, 18, 0),
+    QM(0x17b9, 40, 19, 0),   QM(0x1182, 42, 20, 0),   QM(0x0cef, 43, 21, 0),
+    QM(0x09a1, 45, 22, 0),   QM(0x072f, 46, 23, 0),   QM(0x055c, 48, 24, 0),
+    QM(0x0406, 49, 25, 0),   QM(0x0303, 51, 26, 0),   QM(0x0240, 52, 27, 0),
+    QM(0x01b1, 54, 28, 0),   QM(0x0144, 56, 29, 0),   QM(0x00f5, 57, 30, 0),
+    QM(0x00b7, 59, 31, 0),   QM(0x008a, 60, 32, 0),   QM(0x0068, 62, 33, 0),
+    QM(0x004e, 63, 34, 0),   QM(0x003b, 32, 35, 0),   QM(0x002c, 33, 9, 0),
+    QM(0x5ae1, 37, 37, 1),   QM(0x484c, 64, 38, 0),   QM(0x3a0d, 65, 39, 0),
+    QM(0x2ef1, 67, 40, 0),   QM(0x261f, 68, 41, 0),   QM(0x1f33, 69, 42, 0),
+    QM(0x19a8, 70, 43, 0),   QM(0x1518, 72, 44, 0),   QM(0x1177, 73, 45, 0),
+    QM(0x0e74, 74, 46, 0),   QM(0x0bfb, 75, 47, 0),   QM(0x09f8, 77, 48, 0),
+    QM(0x0861, 78, 49, 0),   QM(0x0706, 79, 50, 0),   QM(0x05cd, 48, 51, 0),
+    QM(0x04de, 50, 52, 0),   QM(0x040f, 50, 53, 0),   QM(0x0363, 51, 54, 0),
+    QM(0x02d4, 52, 55, 0),   QM(0x025c, 53, 56, 0),   QM(0x01f8, 54, 57, 0),
+    QM(0x01a4, 55, 58, 0),   QM(0x0160, 56, 59, 0),   QM(0x0125, 57, 60, 0),
+    QM(0x00f6, 58, 61, 0),   QM(0x00cb, 59, 62, 0),   QM(0x00ab, 61, 63, 0),
+    QM(0x008f, 61, 32, 0),   QM(0x5b12, 65, 65, 1),   QM(0x4d04, 80, 66, 0),
+    QM(0x412c, 81, 67, 0),   QM(0x37d8, 82, 68, 0),   QM(0x2fe8, 83, 69, 0),
+    QM(0x293c, 84, 70, 0),   QM(0x2379, 86, 71, 0),   QM(0x1edf, 87, 72, 0),
+    QM(0x1aa9, 87, 73, 0),   QM(0x174e, 72, 74, 0),   QM(0x1424, 72, 75, 0),
+    QM(0x119c, 74, 76, 0),   QM(0x0f6b, 74, 77, 0),   QM(0x0d51, 75, 78, 0),
+    QM(0x0bb6, 77, 79, 0),   QM(0x0a40, 77, 48, 0),   QM(0x5832, 80, 81, 1),
+    QM(0x4d1c, 88, 82, 0),   QM(0x438e, 89, 83, 0),   QM(0x3bdd, 90, 84, 0),
+    QM(0x34ee, 91, 85, 0),   QM(0x2eae, 92, 86, 0),   QM(0x299a, 93, 87, 0),
+    QM(0x2516, 86, 71, 0),   QM(0x5570, 88, 89, 1),   QM(0x4ca9, 95, 90, 0),
+    QM(0x44d9, 96, 91, 0),   QM(0x3e22, 97, 92, 0),   QM(0x3824, 99, 93, 0),
+    QM(0x32b4, 99, 94, 0),   QM(0x2e17, 93, 86, 0),   QM(0x56a8, 95, 96, 1),
+    QM(0x4f46, 101, 97, 0),  QM(0x47e5, 102, 98, 0),  QM(0x41cf, 103, 99, 0),
+    QM(0x3c3d, 104, 100, 0), QM(0x375e, 99, 93, 0),   QM(0x5231, 105, 102, 0),
+    QM(0x4c0f, 106, 103, 0), QM(0x4639, 107, 104, 0), QM(0x415e, 103, 99, 0),
+    QM(0x5627, 105, 106, 1), QM(0x50e7, 108, 107, 0), QM(0x4b85, 109, 103, 0),
+    QM(0x5597, 110, 109, 0), QM(0x504f, 111, 107, 0), QM(0x5a10, 110, 111, 1),
+    QM(0x5522, 112, 109, 0), QM(0x59eb, 112, 111, 1), QM(0x5a1d, 113, 113, 0)};
+#undef QM
+
+// jdarith.c's QM decoder (T.81 D.2) over entropy-coded bytes with FF 00
+// unstuffed. At a marker it reads zeros, as libjpeg does (legal in
+// arithmetic coding); past the end of the data cv2's reader suspends and
+// returns no image, so that raises.
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;  // C and A registers
+  int ct = -16;          // bits left in C's byte buffer; -16: two bytes to read first
+  bool at_marker = false;
+
+  ArithReader(const uint8_t* p_, const uint8_t* end_) : p(p_), end(end_) {}
+
+  int byte() {
+    if (at_marker) return 0;
+    if (p >= end) fail("corrupt JPEG data: premature end of data segment");
+    int d = *p++;
+    if (d != 0xFF) return d;
+    while (p < end && *p == 0xFF) ++p;  // fill bytes
+    if (p >= end) fail("corrupt JPEG data: premature end of data segment");
+    if (*p == 0) {
+      ++p;
+      return 0xFF;
+    }
+    --p;  // the FF of the marker
+    at_marker = true;
+    return 0;
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two initial bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF), nm = (int)((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: the LPS
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // jdmarker.c read_restart_marker: bytes up to the next marker skipped
+  // (a warning in libjpeg), which must be RSTn; the registers start anew
+  void restart(int expected) {
+    if (!at_marker) {
+      for (;;) {
+        while (p < end && *p != 0xFF) ++p;
+        while (p + 1 < end && p[1] == 0xFF) ++p;
+        if (p + 1 >= end || p[1] != 0x00) break;
+        p += 2;
+      }
+    }
+    if (p + 1 >= end || p[1] != 0xD0 + expected)
+      fail("corrupt JPEG data: restart marker RST" + std::to_string(expected) + " not found");
+    p += 2;
+    at_marker = false;
+    c = a = 0;
+    ct = -16;
+  }
+};
+
+// One arithmetic-coded scan block by block: jdarith.c decode_mcu for a
+// sequential scan, decode_mcu_DC_first / _DC_refine / _AC_first /
+// _AC_refine for a progressive one, with the DC and AC statistics bins of
+// each table slot (Tables F.4, F.5), the DC conditioning L, U and the AC
+// Kx of the DAC segment. Where libjpeg meets a bad code (a magnitude or
+// run past its limit) it warns and stops decoding the scan; this raises.
+struct ArithScan {
+  ArithReader r;
+  const Jpeg& j;
+  Mode mode;
+  int ns, ss, se, al;
+  int dct[4] = {0, 0, 0, 0}, act[4] = {0, 0, 0, 0};
+  int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed = 113;  // the bin of fixed probability 0.5
+
+  ArithScan(const Jpeg& j_, const Scan& sc, const uint8_t* p)
+      : r(p, j_.end), j(j_), mode(scan_mode(j_, sc)), ns(sc.ns), ss(sc.ss), se(sc.se), al(sc.al) {
+    for (int i = 0; i < ns; ++i) {
+      dct[i] = sc.td[i];
+      act[i] = sc.ta[i];
+    }
+    reset();
+  }
+
+  // jdarith.c start_pass / process_restart: the bins of the scan's tables
+  // zeroed, the DC predictions and contexts reset
+  void reset() {
+    const bool dc = mode == kSequential || mode == kDcFirst;
+    const bool ac = mode == kSequential || mode >= kAcFirst;
+    for (int i = 0; i < ns; ++i) {
+      if (dc) {
+        std::memset(dc_stats[dct[i]], 0, 64);
+        last_dc[i] = context[i] = 0;
+      }
+      if (ac) std::memset(ac_stats[act[i]], 0, 256);
+    }
+  }
+
+  void restart(int n) {
+    r.restart(n);
+    reset();
+  }
+
+  const uint8_t* position() const { return r.p; }
+
+  [[noreturn]] static void bad_code() { fail("corrupt JPEG data: bad arithmetic code"); }
+
+  // Figures F.19 - F.24: the difference of a DC value, and the context it
+  // sets for the next one (zero, small or large, by sign)
+  int dc_difference(int i) {
+    const int t = dct[i];
+    uint8_t* stats = dc_stats[t];
+    uint8_t* st = stats + context[i];
+    if (!r.decode(st)) {
+      context[i] = 0;
+      return 0;
+    }
+    const int sign = r.decode(st + 1);
+    st += 2 + sign;
+    int m = r.decode(st);
+    if (m) {
+      st = stats + 20;  // X1
+      while (r.decode(st)) {
+        if ((m <<= 1) == 0x8000) bad_code();
+        ++st;
+      }
+    }
+    if (m < (1 << j.dc_l[t]) >> 1) context[i] = 0;
+    else if (m > (1 << j.dc_u[t]) >> 1) context[i] = 12 + sign * 4;
+    else context[i] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (r.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // Figure F.20: the band's coefficients up to its EOB, shifted up by Al
+  void ac_band(int i, int16_t* b, int start, int end, int shift) {
+    const int t = act[i];
+    uint8_t* stats = ac_stats[t];
+    for (int k = start; k <= end; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (r.decode(st)) break;  // EOB
+      while (!r.decode(st + 1)) {
+        st += 3;
+        if (++k > end) bad_code();
+      }
+      const int sign = r.decode(&fixed);
+      st += 2;
+      int m = r.decode(st);
+      if (m && r.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= j.ac_k[t] ? 189 : 217);  // X2
+        while (r.decode(st)) {
+          if ((m <<= 1) == 0x8000) bad_code();
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (r.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      b[kNatural[k]] = (int16_t)((uint32_t)v << shift);
+    }
+  }
+
+  bool sequential_block(int i, int16_t* coef) {
+    std::memset(coef, 0, 64 * sizeof(int16_t));
+    block(i, coef);
+    return true;
+  }
+
+  void block(int i, int16_t* b) {
+    switch (mode) {
+      case kSequential:
+        last_dc[i] = (last_dc[i] + dc_difference(i)) & 0xFFFF;
+        b[0] = (int16_t)last_dc[i];
+        ac_band(i, b, 1, 63, 0);
+        break;
+      case kDcFirst:
+        last_dc[i] += dc_difference(i);
+        b[0] = (int16_t)((uint32_t)last_dc[i] << al);
+        break;
+      case kDcRefine:
+        if (r.decode(&fixed)) b[0] = (int16_t)(b[0] | (1 << al));
+        break;
+      case kAcFirst:
+        ac_band(i, b, ss, se, al);
+        break;
+      case kAcRefine: {
+        const int p1 = 1 << al, m1 = (int)(~0u << al);
+        uint8_t* stats = ac_stats[act[i]];
+        int kex = se;  // the band's end of block so far
+        while (kex > 0 && !b[kNatural[kex]]) --kex;
+        for (int k = ss; k <= se; ++k) {
+          uint8_t* st = stats + 3 * (k - 1);
+          if (k > kex && r.decode(st)) break;  // EOB
+          for (;;) {
+            int16_t& t = b[kNatural[k]];
+            if (t) {  // a correction bit
+              if (r.decode(st + 2)) t = (int16_t)(t + (t < 0 ? m1 : p1));
+              break;
+            }
+            if (r.decode(st + 1)) {  // newly nonzero
+              t = (int16_t)(r.decode(&fixed) ? m1 : p1);
+              break;
+            }
+            st += 3;
+            if (++k > se) bad_code();
+          }
+        }
+        break;
+      }
+    }
+  }
+};
+
 // The single-scan file: its scan decoded and inverse transformed block by
 // block into the planes.
-void decode_scan(Jpeg& j) {
+template <class Entropy>
+void decode_scan(Jpeg& j, Entropy& e) {
   const Tables& tab = tables();
   const uint8_t* limit = tab.idct_limit;
   // Ss, Se, Ah and Al other than 0, 63, 0, 0 are only a warning in
-  // jdhuff.c (JWRN_NOT_SEQUENTIAL): the scan is read as a sequential one
+  // jdhuff.c and jdarith.c (JWRN_NOT_SEQUENTIAL): the scan is read as a
+  // sequential one
   const Scan& sc = j.first;
   for (int c = 0; c < j.ncomp; ++c) {
     Component& k = j.comp[c];
     if (sc.comp[c] != c) fail("scan components do not match the frame header");
-    k.td = sc.td[c];
-    k.ta = sc.ta[c];
     if (!j.have_quant[k.tq]) fail("quantization table " + std::to_string(k.tq) + " not defined");
-    huffman_table(j, false, k.td);
-    huffman_table(j, true, k.ta);
   }
   bool single = j.ncomp == 1;
   int mcux, mcuy;
@@ -715,6 +1224,9 @@ void decode_scan(Jpeg& j) {
   } else {
     mcux = (j.width + 8 * j.hmax - 1) / (8 * j.hmax);
     mcuy = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
+    int blocks = 0;
+    for (int c = 0; c < j.ncomp; ++c) blocks += j.comp[c].h * j.comp[c].v;
+    if (blocks > 10) fail("bad MCU size: " + std::to_string(blocks) + " blocks (at most 10)");
   }
   for (int c = 0; c < j.ncomp; ++c) {
     Component& k = j.comp[c];
@@ -722,17 +1234,14 @@ void decode_scan(Jpeg& j) {
     k.rows = mcuy * k.v * 8;
     k.plane.assign((size_t)k.stride * k.rows, 0);
   }
-  BitReader br(j.scan, j.end);
-  int pred[3] = {0, 0, 0};
   int16_t coef[64];
   int64_t total = (int64_t)mcux * mcuy, todo = j.restart;
   int next_rst = 0;
   for (int64_t m = 0; m < total; ++m) {
     if (j.restart) {
       if (todo == 0) {
-        br.restart(next_rst);
+        e.restart(next_rst);
         next_rst = (next_rst + 1) & 7;
-        pred[0] = pred[1] = pred[2] = 0;
         todo = j.restart;
       }
       --todo;
@@ -740,30 +1249,10 @@ void decode_scan(Jpeg& j) {
     int mx = (int)(m % mcux), my = (int)(m / mcux);
     for (int c = 0; c < j.ncomp; ++c) {
       Component& k = j.comp[c];
-      const Huffman& dc = j.dc[k.td];
-      const Huffman& ac = j.ac[k.ta];
       const int16_t* q = j.quant[k.tq];
       for (int by = 0; by < k.v; ++by) {
         for (int bx = 0; bx < k.h; ++bx) {
-          std::memset(coef, 0, sizeof coef);
-          int s = br.decode(dc);
-          if (s) pred[c] += extend(br.bits(s), s);
-          coef[0] = (int16_t)pred[c];
-          bool any_ac = false;
-          for (int z = 1; z < 64; ++z) {
-            int rs = br.decode(ac);
-            int r = rs >> 4;
-            s = rs & 15;
-            if (s) {
-              z += r;
-              if (z > 63) fail("corrupt JPEG data: coefficient index past 63");
-              coef[kNatural[z]] = (int16_t)extend(br.bits(s), s);
-              any_ac = true;
-            } else {
-              if (r != 15) break;
-              z += 15;
-            }
-          }
+          const bool any_ac = e.sequential_block(c, coef);
           uint8_t* out = k.plane.data() + (size_t)((my * k.v + by) * 8) * k.stride +
                          (size_t)(mx * k.h + bx) * 8;
           if (!any_ac) {  // jidctint.c's all-zero shortcuts, taken for the whole block
@@ -782,7 +1271,7 @@ void decode_scan(Jpeg& j) {
   // scan and has output the image before it meets a second SOS, so cv2
   // returns that image. Without an EOI cv2 returns no image (its reader
   // suspends at the end of the data).
-  const uint8_t* p = br.p;
+  const uint8_t* p = e.position();
   const uint8_t* end = j.end;
   for (;;) {
     while (p < end && *p != 0xFF) ++p;
@@ -805,12 +1294,12 @@ void decode_scan(Jpeg& j) {
 // coef_bits: the successive-approximation bit to which each coefficient
 // is known, -1 before its first scan.
 struct Coefficients {
-  int wib[3] = {0, 0, 0}, hib[3] = {0, 0, 0};  // width_in_blocks, height_in_blocks
-  int bw[3] = {0, 0, 0}, bh[3] = {0, 0, 0};    // the same, padded to whole MCUs
-  std::vector<int16_t> blocks[3];              // 64 natural-order coefficients a block
-  int16_t quant[3][64];
-  bool latched[3] = {false, false, false};
-  int bits[3][64];
+  int wib[4] = {0, 0, 0, 0}, hib[4] = {0, 0, 0, 0};  // width_in_blocks, height_in_blocks
+  int bw[4] = {0, 0, 0, 0}, bh[4] = {0, 0, 0, 0};    // the same, padded to whole MCUs
+  std::vector<int16_t> blocks[4];                    // 64 natural-order coefficients a block
+  int16_t quant[4][64];
+  bool latched[4] = {false, false, false, false};
+  int bits[4][64];
 
   explicit Coefficients(const Jpeg& j) {
     std::memset(quant, 0, sizeof quant);
@@ -829,7 +1318,7 @@ struct Coefficients {
   }
 };
 
-// jdphuff.c start_pass_phuff_decoder: the scan's parameters checked
+// jdphuff.c / jdarith.c start_pass: the scan's parameters checked
 // (JERR_BAD_PROGRESSION), then coef_bits advanced to Al over the band. A
 // band whose Ah is not the bit it is known to is only a warning there
 // (JWRN_BOGUS_PROGRESSION), and is decoded all the same.
@@ -846,24 +1335,13 @@ void start_progressive_scan(const Scan& sc, Coefficients& cf) {
   }
 }
 
-// One scan's entropy-coded data into the buffer: jdhuff.c decode_mcu for a
-// sequential scan, jdphuff.c decode_mcu_DC_first / _DC_refine /
-// _AC_first / _AC_refine for a progressive one, MCU by MCU as
+// One scan's entropy-coded data into the buffer, MCU by MCU as
 // jdcoefct.c consume_data walks them (jdinput.c per_scan_setup: a scan of
 // one component covers its own blocks, one an MCU and no dummy blocks; an
 // interleaved scan covers whole MCUs of the frame's grid, dummy blocks
-// included). process_restart resets the DC predictors and the EOB run.
-void decode_scan_into(Jpeg& j, const Scan& sc, Coefficients& cf, BitReader& br) {
-  enum { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
-  const int mode = !j.progressive ? kSequential
-                   : sc.ss == 0   ? (sc.ah == 0 ? kDcFirst : kDcRefine)
-                                  : (sc.ah == 0 ? kAcFirst : kAcRefine);
-  const Huffman* dct[4] = {nullptr, nullptr, nullptr, nullptr};
-  const Huffman* act[4] = {nullptr, nullptr, nullptr, nullptr};
-  for (int i = 0; i < sc.ns; ++i) {
-    if (mode == kSequential || mode == kDcFirst) dct[i] = &huffman_table(j, false, sc.td[i]);
-    if (mode == kSequential || mode >= kAcFirst) act[i] = &huffman_table(j, true, sc.ta[i]);
-  }
+// included), restarts between them.
+template <class Entropy>
+void decode_scan_into(Jpeg& j, const Scan& sc, Coefficients& cf, Entropy& e) {
   int mcux, mcuy;
   if (sc.ns == 1) {
     mcux = cf.wib[sc.comp[0]];
@@ -875,20 +1353,14 @@ void decode_scan_into(Jpeg& j, const Scan& sc, Coefficients& cf, BitReader& br) 
     for (int i = 0; i < sc.ns; ++i) blocks += j.comp[sc.comp[i]].h * j.comp[sc.comp[i]].v;
     if (blocks > 10) fail("bad MCU size: " + std::to_string(blocks) + " blocks (at most 10)");
   }
-  const int al = sc.al;
-  const int p1 = 1 << al, m1 = (int)(~0u << al);  // +1 and -1 in the bit coded
-  int pred[4] = {0, 0, 0, 0};
-  unsigned eobrun = 0;
   const int64_t total = (int64_t)mcux * mcuy;
   int64_t todo = j.restart;
   int next_rst = 0;
   for (int64_t m = 0; m < total; ++m) {
     if (j.restart) {
       if (todo == 0) {
-        br.restart(next_rst);
+        e.restart(next_rst);
         next_rst = (next_rst + 1) & 7;
-        pred[0] = pred[1] = pred[2] = pred[3] = 0;
-        eobrun = 0;
         todo = j.restart;
       }
       --todo;
@@ -897,95 +1369,8 @@ void decode_scan_into(Jpeg& j, const Scan& sc, Coefficients& cf, BitReader& br) 
     for (int i = 0; i < sc.ns; ++i) {
       const int c = sc.comp[i];
       const int h = sc.ns == 1 ? 1 : j.comp[c].h, v = sc.ns == 1 ? 1 : j.comp[c].v;
-      for (int by = 0; by < v; ++by) {
-        for (int bx = 0; bx < h; ++bx) {
-          int16_t* b = cf.block(c, mx * h + bx, my * v + by);
-          switch (mode) {
-            case kSequential: {
-              int s = br.decode(*dct[i]);
-              if (s) pred[i] += extend(br.bits(s), s);
-              b[0] = (int16_t)pred[i];
-              for (int k = 1; k < 64; ++k) {
-                const int rs = br.decode(*act[i]), r = rs >> 4;
-                s = rs & 15;
-                if (s) {
-                  k += r;
-                  b[kNatural[k]] = (int16_t)extend(br.bits(s), s);
-                } else {
-                  if (r != 15) break;
-                  k += 15;
-                }
-              }
-              break;
-            }
-            case kDcFirst: {
-              const int s = br.decode(*dct[i]);
-              if (s) pred[i] += extend(br.bits(s), s);
-              b[0] = (int16_t)((uint32_t)pred[i] << al);
-              break;
-            }
-            case kDcRefine:
-              if (br.bits(1)) b[0] = (int16_t)(b[0] | p1);
-              break;
-            case kAcFirst:
-              if (eobrun > 0) {
-                --eobrun;
-                break;
-              }
-              for (int k = sc.ss; k <= sc.se; ++k) {
-                const int rs = br.decode(*act[i]), r = rs >> 4, s = rs & 15;
-                if (s) {
-                  k += r;
-                  b[kNatural[k]] = (int16_t)((uint32_t)extend(br.bits(s), s) << al);
-                } else if (r == 15) {
-                  k += 15;
-                } else {  // EOBr: this block and 2^r - 1 + (r bits) more
-                  eobrun = 1u << r;
-                  if (r) eobrun += (unsigned)br.bits(r);
-                  --eobrun;
-                  break;
-                }
-              }
-              break;
-            case kAcRefine: {
-              // a correction bit for each coefficient with history that the
-              // run passes; a run counts only coefficients still zero
-              auto correct = [&](int16_t& t) {
-                if (br.bits(1) && (t & p1) == 0) t = (int16_t)(t >= 0 ? t + p1 : t + m1);
-              };
-              int k = sc.ss;
-              if (eobrun == 0) {
-                for (; k <= sc.se; ++k) {
-                  const int rs = br.decode(*act[i]);
-                  int r = rs >> 4, s = rs & 15;
-                  if (s) {  // a size other than 1 is a warning; libjpeg reads it as 1
-                    s = br.bits(1) ? p1 : m1;
-                  } else if (r != 15) {
-                    eobrun = 1u << r;
-                    if (r) eobrun += (unsigned)br.bits(r);
-                    break;
-                  }
-                  do {
-                    int16_t& t = b[kNatural[k]];
-                    if (t != 0) correct(t);
-                    else if (--r < 0) break;
-                    ++k;
-                  } while (k <= sc.se);
-                  if (s) b[kNatural[k]] = (int16_t)s;
-                }
-              }
-              if (eobrun > 0) {
-                for (; k <= sc.se; ++k) {
-                  int16_t& t = b[kNatural[k]];
-                  if (t != 0) correct(t);
-                }
-                --eobrun;
-              }
-              break;
-            }
-          }
-        }
-      }
+      for (int by = 0; by < v; ++by)
+        for (int bx = 0; bx < h; ++bx) e.block(i, cf.block(c, mx * h + bx, my * v + by));
     }
   }
 }
@@ -1013,12 +1398,11 @@ bool next_scan(Jpeg& j, const uint8_t*& p, Scan& sc) {
       parse_sos(j, s, len, sc);
       return true;
     }
-    if (m == 0xCC) refuse_frame(m);
-    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8) fail("more than one frame header (SOF)");
+    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)
+      fail("more than one frame header (SOF)");
     if (!table_segment(j, m, s, len)) fail("unsupported JPEG marker " + hex2(m));
   }
 }
-
 // jdcoefct.c smoothing_ok: block smoothing (on by default in libjpeg) runs
 // on a progressive file when every component has latched a table without
 // a zero among its first ten quantizers and has had a DC scan, and some
@@ -1157,9 +1541,15 @@ void decode_multi_scan(Jpeg& j) {
       cf.latched[c] = true;
     }
     if (j.progressive) start_progressive_scan(sc, cf);
-    BitReader br(p, j.end);
-    decode_scan_into(j, sc, cf, br);
-    p = br.p;
+    if (j.arithmetic) {
+      ArithScan e(j, sc, p);
+      decode_scan_into(j, sc, cf, e);
+      p = e.position();
+    } else {
+      HuffmanScan e(j, sc, p);
+      decode_scan_into(j, sc, cf, e);
+      p = e.position();
+    }
   } while (next_scan(j, p, sc));
   const uint8_t* limit = tables().idct_limit;
   const bool smooth = j.progressive && smoothing_ok(j, cf);
@@ -1179,13 +1569,138 @@ void decode_multi_scan(Jpeg& j) {
   }
 }
 
+// ------------------------------------------------------------ lossless
+
+// A lossless file (SOF3), scan by scan (each of one component or several,
+// interleaved): jdlhuff.c's Huffman-coded differences (category 16 is
+// 32768 with no extra bits) over whole MCUs of one sample a block, then
+// jdlossls.c's undifferencing of each component row by the scan's
+// predictor Ss (T.81 Table H.1, modulo 2^16): the scan's first row, and
+// the first row of each restart interval, from the left and its first
+// sample from 2^(P - Pt - 1); every other row's first sample from above.
+// The point transform Al shifts each sample back up, and the sample keeps
+// its low 8 bits (jddiffct.c / jdlossls.c's scaler). libjpeg counts a
+// restart interval in whole MCU rows, and resets the prediction at the
+// first row of the iMCU row in which a restart falls.
+void decode_lossless(Jpeg& j) {
+  const int mcux = (j.width + j.hmax - 1) / j.hmax, mcuy = (j.height + j.vmax - 1) / j.vmax;
+  for (int c = 0; c < j.ncomp; ++c) {
+    Component& k = j.comp[c];
+    k.stride = mcux * k.h;
+    k.rows = mcuy * k.v;
+    k.plane.assign((size_t)k.stride * k.rows, 0);
+  }
+  Scan sc = j.first;
+  const uint8_t* p = j.scan;
+  std::vector<int32_t> diff[4];
+  std::vector<int32_t> rows[2];
+  do {
+    if (sc.ss < 1 || sc.ss > 7 || sc.se != 0 || sc.ah != 0 || sc.al >= j.precision)
+      fail("bad lossless parameters Ss=" + std::to_string(sc.ss) + " Se=" + std::to_string(sc.se) +
+           " Ah=" + std::to_string(sc.ah) + " Al=" + std::to_string(sc.al));
+    const Huffman* t[4] = {nullptr, nullptr, nullptr, nullptr};
+    for (int i = 0; i < sc.ns; ++i) t[i] = &huffman_table(j, false, sc.td[i]);
+    // the scan's MCU grid: one sample of a lone component, or each
+    // component's h x v samples of the frame's grid
+    int sx = mcux, sy = mcuy, hs[4], vs[4];
+    for (int i = 0; i < sc.ns; ++i) {
+      const Component& k = j.comp[sc.comp[i]];
+      hs[i] = sc.ns == 1 ? 1 : k.h;
+      vs[i] = sc.ns == 1 ? 1 : k.v;
+    }
+    if (sc.ns == 1) {
+      sx = j.comp[sc.comp[0]].dw;
+      sy = j.comp[sc.comp[0]].dh;
+    } else {
+      int blocks = 0;
+      for (int i = 0; i < sc.ns; ++i) blocks += hs[i] * vs[i];
+      if (blocks > 10) fail("bad MCU size: " + std::to_string(blocks) + " blocks (at most 10)");
+    }
+    if (j.restart % sx)
+      fail("lossless JPEG with a restart interval of " + std::to_string(j.restart) +
+           " MCUs, not a whole number of MCU rows of " + std::to_string(sx) +
+           ", is not supported");
+    const int restart_rows = j.restart / sx;
+    for (int i = 0; i < sc.ns; ++i) diff[i].assign((size_t)sx * hs[i] * sy * vs[i], 0);
+    BitReader br(p, j.end);
+    int next_rst = 0;
+    for (int my = 0; my < sy; ++my) {
+      if (restart_rows && my && my % restart_rows == 0) {
+        br.restart(next_rst);
+        next_rst = (next_rst + 1) & 7;
+      }
+      for (int mx = 0; mx < sx; ++mx) {
+        for (int i = 0; i < sc.ns; ++i) {
+          const int w = sx * hs[i];
+          for (int y = 0; y < vs[i]; ++y) {
+            int32_t* d = diff[i].data() + (size_t)(my * vs[i] + y) * w + (size_t)mx * hs[i];
+            for (int x = 0; x < hs[i]; ++x) {
+              const int s = br.decode(*t[i]);
+              d[x] = s == 16 ? 32768 : s ? extend(br.bits(s), s) : 0;
+            }
+          }
+        }
+      }
+    }
+    const int psv = sc.ss, pt = sc.al;
+    for (int i = 0; i < sc.ns; ++i) {
+      Component& k = j.comp[sc.comp[i]];
+      const int w = sx * hs[i], n = k.dw;
+      // jddiffct.c undifferences an iMCU row (v rows of the component; one
+      // MCU row of an interleaved scan, v of a lone component's) after
+      // decoding it, and a restart within it resets its first row
+      const int per_imcu = sc.ns == 1 ? k.v : 1;
+      auto first_row = [&](int r) {
+        if (r % k.v) return false;
+        const int imcu = r / k.v;
+        if (imcu == 0) return true;
+        for (int my = imcu * per_imcu; restart_rows && my < (imcu + 1) * per_imcu; ++my)
+          if (my % restart_rows == 0) return true;
+        return false;
+      };
+      rows[0].assign(n, 0);
+      rows[1].assign(n, 0);
+      for (int r = 0; r < k.dh; ++r) {
+        const int32_t* d = diff[i].data() + (size_t)r * w;
+        int32_t* cur = rows[r & 1].data();
+        const int32_t* up = rows[(r + 1) & 1].data();
+        if (first_row(r)) {
+          cur[0] = (d[0] + (1 << (j.precision - pt - 1))) & 0xFFFF;
+          for (int x = 1; x < n; ++x) cur[x] = (d[x] + cur[x - 1]) & 0xFFFF;
+        } else {
+          cur[0] = (d[0] + up[0]) & 0xFFFF;
+          for (int x = 1; x < n; ++x) {
+            const int32_t ra = cur[x - 1], rb = up[x], rc = up[x - 1];
+            int32_t pred;
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+            cur[x] = (d[x] + pred) & 0xFFFF;
+          }
+        }
+        uint8_t* o = k.plane.data() + (size_t)r * k.stride;
+        for (int x = 0; x < n; ++x) o[x] = (uint8_t)(cur[x] << pt);
+      }
+    }
+    p = br.p;
+  } while (next_scan(j, p, sc));
+}
+
 // jdsample.c, one output row of component `k` at image row y, at least
-// `width` samples, into `tmp` (or a pointer into the plane when 1:1)
-const uint8_t* upsample_row(const Component& k, int hr, int vr, int y, uint8_t* tmp) {
+// `width` samples, into `tmp` (or a pointer into the plane when 1:1).
+// Without `fancy` (a lossless frame, whose DCT size of 1 turns fancy
+// upsampling off) every factor replicates.
+const uint8_t* upsample_row(const Component& k, int hr, int vr, int y, bool fancy, uint8_t* tmp) {
   const uint8_t* plane = k.plane.data();
   const int dw = k.dw;
   if (hr == 1 && vr == 1) return plane + (size_t)y * k.stride;
-  if (hr == 2 && vr == 1 && dw > 2) {  // h2v1_fancy_upsample
+  if (fancy && hr == 2 && vr == 1 && dw > 2) {  // h2v1_fancy_upsample
     const uint8_t* in = plane + (size_t)y * k.stride;
     tmp[0] = in[0];
     tmp[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
@@ -1198,7 +1713,7 @@ const uint8_t* upsample_row(const Component& k, int hr, int vr, int y, uint8_t* 
     tmp[2 * dw - 1] = in[dw - 1];
     return tmp;
   }
-  if (hr == 1 && vr == 2) {  // h1v2_fancy_upsample
+  if (fancy && hr == 1 && vr == 2) {  // h1v2_fancy_upsample
     int iy = y >> 1;
     bool below = y & 1;
     int far = below ? std::min(iy + 1, k.dh - 1) : std::max(iy - 1, 0);
@@ -1208,7 +1723,7 @@ const uint8_t* upsample_row(const Component& k, int hr, int vr, int y, uint8_t* 
     for (int i = 0; i < dw; ++i) tmp[i] = (uint8_t)((n0[i] * 3 + n1[i] + bias) >> 2);
     return tmp;
   }
-  if (hr == 2 && vr == 2 && dw > 2) {  // h2v2_fancy_upsample
+  if (fancy && hr == 2 && vr == 2 && dw > 2) {  // h2v2_fancy_upsample
     int iy = y >> 1;
     bool below = y & 1;
     int far = below ? std::min(iy + 1, k.dh - 1) : std::max(iy - 1, 0);
@@ -1238,15 +1753,30 @@ const uint8_t* upsample_row(const Component& k, int hr, int vr, int y, uint8_t* 
   return tmp;
 }
 
+// OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, on the CMYK that libjpeg outputs
+// (Adobe's inverted values as they are stored)
+inline uint8_t cmyk_channel(int v, int k) { return (uint8_t)(k - ((255 - v) * k >> 8)); }
+
 void decode_to_bgr(Jpeg& j, uint8_t* out) {
+  const Colour colour = colour_model(j);
   // jdinput.c initial_setup's has_multiple_scans: a file whose first scan
   // is progressive or holds fewer components than the frame is read scan
   // by scan into the coefficient buffer; any other in one pass
-  if (j.progressive || j.first.ns < j.ncomp) decode_multi_scan(j);
-  else decode_scan(j);
+  if (j.lossless) {
+    decode_lossless(j);
+  } else if (j.progressive || j.first.ns < j.ncomp) {
+    decode_multi_scan(j);
+  } else if (j.arithmetic) {
+    ArithScan e(j, j.first, j.scan);
+    decode_scan(j, e);
+  } else {
+    HuffmanScan e(j, j.first, j.scan);
+    decode_scan(j, e);
+  }
   const Tables& tab = tables();
   const int w = j.width;
-  std::vector<uint8_t> tmp[3];
+  const bool fancy = !j.lossless;
+  std::vector<uint8_t> tmp[4];
   for (int c = 0; c < j.ncomp; ++c) tmp[c].assign((size_t)j.comp[c].dw * j.hmax + 16, 0);
   for (int y = 0; y < j.height; ++y) {
     uint8_t* o = out + (size_t)y * w * 3;
@@ -1255,17 +1785,45 @@ void decode_to_bgr(Jpeg& j, uint8_t* out) {
       for (int x = 0; x < w; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
       continue;
     }
-    const uint8_t* row[3];
-    for (int c = 0; c < 3; ++c) {
+    const uint8_t* row[4];
+    for (int c = 0; c < j.ncomp; ++c) {
       const Component& k = j.comp[c];
-      row[c] = upsample_row(k, j.hmax / k.h, j.vmax / k.v, y, tmp[c].data());
+      row[c] = upsample_row(k, j.hmax / k.h, j.vmax / k.v, y, fancy, tmp[c].data());
     }
-    const uint8_t *yy = row[0], *cb = row[1], *cr = row[2];
-    for (int x = 0; x < w; ++x) {
-      int l = yy[x], b = cb[x], r = cr[x];
-      o[3 * x] = clamp255(l + tab.cb_b[b]);
-      o[3 * x + 1] = clamp255(l + ((tab.cb_g[b] + tab.cr_g[r]) >> 16));
-      o[3 * x + 2] = clamp255(l + tab.cr_r[r]);
+    switch (colour) {
+      case Colour::kYCbCr:
+        for (int x = 0; x < w; ++x) {  // jdcolor.c ycc_rgb_convert
+          const int l = row[0][x], b = row[1][x], r = row[2][x];
+          o[3 * x] = clamp255(l + tab.cb_b[b]);
+          o[3 * x + 1] = clamp255(l + ((tab.cb_g[b] + tab.cr_g[r]) >> 16));
+          o[3 * x + 2] = clamp255(l + tab.cr_r[r]);
+        }
+        break;
+      case Colour::kRGB:
+        for (int x = 0; x < w; ++x) {
+          o[3 * x] = row[2][x];
+          o[3 * x + 1] = row[1][x];
+          o[3 * x + 2] = row[0][x];
+        }
+        break;
+      case Colour::kCMYK:
+        for (int x = 0; x < w; ++x) {
+          const int k = row[3][x];
+          o[3 * x] = cmyk_channel(row[2][x], k);
+          o[3 * x + 1] = cmyk_channel(row[1][x], k);
+          o[3 * x + 2] = cmyk_channel(row[0][x], k);
+        }
+        break;
+      case Colour::kYCCK:
+        for (int x = 0; x < w; ++x) {  // jdcolor.c ycck_cmyk_convert, then as CMYK
+          const int l = row[0][x], b = row[1][x], r = row[2][x], k = row[3][x];
+          o[3 * x] = cmyk_channel(clamp255(255 - (l + tab.cb_b[b])), k);
+          o[3 * x + 1] = cmyk_channel(clamp255(255 - (l + ((tab.cb_g[b] + tab.cr_g[r]) >> 16))), k);
+          o[3 * x + 2] = cmyk_channel(clamp255(255 - (l + tab.cr_r[r])), k);
+        }
+        break;
+      case Colour::kGray:
+        break;
     }
   }
 }
@@ -1866,7 +2424,6 @@ int jpeg_decode(const uint8_t* buf, int64_t n, uint8_t* out, int64_t height, int
     Jpeg j;
     parse_headers(j, buf, (size_t)n, true);
     if (j.height != height || j.width != width) fail("output size does not match the header");
-    check_colour(j);
     decode_to_bgr(j, out);
     return 0;
   } catch (const std::exception& e) {

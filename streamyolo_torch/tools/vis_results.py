@@ -10,8 +10,9 @@ of ``tools/vis_results.py``: per-frame overlays of a CCF results pkl
 ``--contrast B.pkl`` renders a second experiment's detections on the same
 frames and composes the two panes split-screen (A before the divider, B
 after), with ``--split-pos``, ``--horizontal`` and the ``--split-animation
-swing`` divider sweep. Frames are read with the port's decoder
-(``data/image_io.py``); drawing and writing them needs cv2.
+swing`` divider sweep. Frames are read and written with the port's codecs
+(``data/image_io.py``: ``imwrite`` writes cv2's bytes for a JPEG or PNG
+name); drawing them (``vis_det``'s labels) and ``--video`` need cv2.
 """
 
 from __future__ import annotations
@@ -68,10 +69,8 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="animate the divider over frame time (fps clock)")
     args = parser.parse_args(argv)
 
-    import cv2
-
     from streamyolo_torch.data.coco import COCO
-    from streamyolo_torch.data.image_io import imread
+    from streamyolo_torch.data.image_io import imread, imwrite
     from streamyolo_torch.vis import (
         contrast_composite,
         html_all_sequences,
@@ -110,7 +109,7 @@ def main(argv: Optional[Sequence[str]] = None):
         seq_name = db.dataset["sequences"][img["sid"]]
         out_file = os.path.join(args.out_dir, seq_name, img["name"])
         os.makedirs(os.path.dirname(out_file), exist_ok=True)
-        cv2.imwrite(out_file, canvas)
+        imwrite(out_file, canvas)
         seq_frames[seq_name].append(out_file)
 
     if args.video:

@@ -4,13 +4,17 @@ split-screen comparisons (``vis_contrast``, ``contrast_composite`` with the
 ``split_anime_swing`` divider), frames to video (``make_video``) and HTML
 galleries.
 
-Drawing, writing image files and video need cv2, which is imported inside
-the functions that use it: the module imports on a host without cv2 (the
-card's machine), where the pure-NumPy parts (``vis_contrast``,
-``contrast_composite``, the easing and the galleries) work. Frames are read
-with ``data/image_io.py::imread`` and rescaled with
-``data/cv2_ops.py::resize_u8`` (``cv2.imread`` and ``cv2.resize`` bit for
-bit, no cv2).
+Frames are read with ``data/image_io.py::imread``, rescaled with
+``data/cv2_ops.py::resize_u8`` and written with ``data/image_io.py::imwrite``
+(``cv2.imread``, ``cv2.resize`` and ``cv2.imwrite`` bit for bit for JPEG and
+PNG, no cv2; any other extension raises ``ValueError``). Drawing and video
+still need cv2, imported inside the functions that use them, so the module
+imports on a host without cv2 (the card's machine), where the pure-NumPy
+parts (``vis_contrast``, ``contrast_composite``, the easing and the
+galleries) and the writing work: the labels of ``draw_detections`` are
+``cv2.putText``'s Hershey glyphs, a table the repository does not hold (so
+a NumPy ``cv2.rectangle`` would not free the drawing of cv2), and
+``make_video`` needs cv2's MPEG-4 encoder.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from streamyolo_torch.data.cv2_ops import resize_u8
-from streamyolo_torch.data.image_io import imread
+from streamyolo_torch.data.image_io import imread, imwrite
 
 # deterministic per-class palette
 _PALETTE = [
@@ -72,29 +76,25 @@ def draw_detections(
 # the StreamYOLO sAP tools' name for the drawer
 def vis_det(img, bboxes, labels, class_names, masks=None, scores=None,
             score_th=0.0, out_scale=1.0, out_file=None):
-    import cv2
-
     canvas = draw_detections(
         img, bboxes, labels, class_names, scores=scores,
         score_th=score_th, out_scale=out_scale,
     )
     if out_file:
         os.makedirs(os.path.dirname(out_file), exist_ok=True)
-        cv2.imwrite(out_file, canvas)
+        imwrite(out_file, canvas)
     return canvas
 
 
 def vis_track(img, bboxes, tracks, labels, class_names, masks=None,
               scores=None, out_scale=1.0, out_file=None):
-    import cv2
-
     canvas = draw_detections(
         img, bboxes, labels, class_names, scores=scores, tracks=tracks,
         out_scale=out_scale,
     )
     if out_file:
         os.makedirs(os.path.dirname(out_file), exist_ok=True)
-        cv2.imwrite(out_file, canvas)
+        imwrite(out_file, canvas)
     return canvas
 
 

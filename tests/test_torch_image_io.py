@@ -167,16 +167,16 @@ def apng(png: bytes) -> bytes:
 
 @pytest.mark.parametrize("case", ["progressive", "lossless", "png", "truncated", "empty"])
 def test_refusals_name_what_they_refuse(tmp_path, case):
-    """Outside the decoders (a progressive arithmetic-coded JPEG, a lossless
-    one, an animated PNG), or corrupt: ``OSError`` with a reason (and, from
-    ``imread``, the path). Truncated entropy-coded data raises
-    where libjpeg would warn and fill with zeros (a deliberate divergence;
-    cv2 5.0 returns None for it)."""
+    """Outside the decoders (a hierarchical progressive JPEG, a lossless
+    JFIF (YCbCr) one, an animated PNG), or corrupt:
+    ``OSError`` with a reason (and, from ``imread``, the path). Truncated
+    entropy-coded data raises where libjpeg would warn and fill with zeros
+    (a deliberate divergence; cv2 5.0 returns None for it)."""
     img = textured(np.random.default_rng(0), 64, 80)
     data, reason = {
-        "progressive": (with_frame_marker(encode(img, progressive=1), 0xCA),
-                        "arithmetic-coded JPEG \\(SOF10\\)"),
-        "lossless": (with_frame_marker(encode(img), 0xC3), "lossless JPEG \\(SOF3\\)"),
+        "progressive": (with_frame_marker(encode(img, progressive=1), 0xC6),
+                        "hierarchical JPEG \\(SOF6\\)"),
+        "lossless": (with_frame_marker(encode(img), 0xC3), "lossless YCbCr JPEG"),
         "png": (apng(cv2.imencode(".png", img)[1].tobytes()), "animated PNG"),
         "truncated": (encode(img)[:900], "premature end"),
         "empty": (b"", "empty file"),
@@ -280,12 +280,13 @@ def digest(arr) -> dict:
 def test_fixture_digests_are_cv2s():
     """``digests.json`` is cv2's reading of every committed fixture (and of
     its resizes of the frames), and the port reads the same bytes: 23
-    baseline JPEGs and, under ``progressive/``, 25 progressive and
-    multi-scan ones."""
+    baseline JPEGs, under ``progressive/`` 25 progressive and multi-scan
+    ones, and under ``codings/`` 52 arithmetic-coded, lossless, CMYK, YCCK
+    and RGB-coded ones."""
     with open(FIXTURES / "digests.json") as f:
         digests = json.load(f)
     files = sorted(p.relative_to(FIXTURES).as_posix() for p in FIXTURES.glob("*/**/*.jpg"))
-    assert files == sorted(digests["decode"]) and len(files) == 23 + 25
+    assert files == sorted(digests["decode"]) and len(files) == 23 + 25 + 52
     for rel in files:
         want = cv2.imread(str(FIXTURES / rel))
         assert digest(want) == digests["decode"][rel], rel

@@ -278,20 +278,29 @@ def with_frame_header(buf: bytes, marker: int, precision: int = 8, ncomp=None) -
     return bytes(out)
 
 
+# the cases keep the ids they were first collected under, when arithmetic
+# coding, lossless frames and four components were refused whole
 @pytest.mark.parametrize("case,marker,precision,ncomp,reason", [
-    ("arithmetic SOF9", 0xC9, 8, None, "arithmetic-coded JPEG \\(SOF9\\)"),
-    ("arithmetic SOF10", 0xCA, 8, None, "arithmetic-coded JPEG \\(SOF10\\)"),
-    ("lossless SOF3", 0xC3, 8, None, "lossless JPEG \\(SOF3\\)"),
+    ("arithmetic SOF9", 0xC9, 12, None, "12-bit precision"),
+    ("arithmetic SOF10", 0xCA, 12, None, "12-bit precision"),
+    ("lossless SOF3", 0xC3, 8, None, "lossless YCbCr JPEG"),
     ("hierarchical SOF5", 0xC5, 8, None, "hierarchical JPEG \\(SOF5\\)"),
     ("12-bit", 0xC2, 12, None, "12-bit precision"),
-    ("CMYK", 0xC2, 8, 4, "4-component"),
-])
+    ("CMYK", 0xC2, 8, 4, "short SOF segment"),
+], ids=[r"arithmetic SOF9-201-8-None-arithmetic-coded JPEG \(SOF9\)",
+        r"arithmetic SOF10-202-8-None-arithmetic-coded JPEG \(SOF10\)",
+        r"lossless SOF3-195-8-None-lossless JPEG \(SOF3\)",
+        r"hierarchical SOF5-197-8-None-hierarchical JPEG \(SOF5\)",
+        "12-bit-194-12-None-12-bit precision", "CMYK-194-8-4-4-component"])
 def test_formats_still_refused(case, marker, precision, ncomp, reason):
     """Frame types and sample formats outside the decoder, on a progressive
-    file's header: ``imdecode`` and ``image_size`` raise ``OSError`` naming
-    them."""
+    file's header (12-bit arithmetic-coded frames, a lossless frame of
+    JFIF's YCbCr, which libjpeg does not convert in lossless mode, four
+    components declared over three components' header): cv2 returns None,
+    ``imdecode`` raises ``OSError`` naming the reason."""
     buf = encode(textured(np.random.default_rng(2), 16, 16), 90, SAMPLINGS["444"])
     data = with_frame_header(buf, marker, precision, ncomp)
+    assert cv2_decode(data) is None
     with pytest.raises(OSError, match=reason):
         imdecode(data)
 

@@ -20,12 +20,26 @@
     ``tests/torch_jpeg_scans.py``: sequential non-interleaved scans, a
     spectral-selection script with a restart interval, and one whose bands
     stop at coefficient 9;
+  * ``codings/frames/seq00/00000{0,1,2}.jpg``: the three baseline frames'
+    own quantized coefficients arithmetic-coded (``tests/torch_jpeg_codings.py``):
+    sequential (SOF9), sequential with a DAC segment and a restart interval,
+    and libjpeg's progressive script (SOF10); they read to the baseline
+    frames' bytes;
+  * ``codings/small/*.jpg``: crops of frame 0 in each sampling factor as
+    arithmetic-coded transcodes of ``small/`` (sequential, progressive, with
+    DAC and restarts; gray; a progressive file cut after its fourth scan),
+    lossless RGB frames (SOF3, a predictor each), CMYK (Adobe transform 0)
+    and YCCK (transform 2) frames, RGB-coded frames (Adobe transform 0, ids
+    'R', 'G', 'B'), and PIL's CMYK and RGB files;
   * ``png/*.png``: crops of frame 0 written by cv2 (BGR, BGRA 16-bit, gray)
     and PNGs built chunk by chunk (``tests/torch_png.py``: a 4-bit palette
     with tRNS and Adam7, 2-bit gray with every filter type, 16-bit RGB with
     Adam7, an eXIf orientation);
   * ``digests.json``: the sha256 and shape of ``cv2.imread`` of every JPEG
-    (``decode``) and PNG (``png``), of ``cv2.resize`` (``INTER_LINEAR``) of each frame to
+    (``decode``) and PNG (``png``), of ``cv2.imdecode`` of frame 0 made a
+    4-component frame by ``tests/torch_jpeg_codings.py::four_component_frame``
+    (``derived``: CMYK and YCCK, which ``chip_smoke.py`` builds and times),
+    of ``cv2.resize`` (``INTER_LINEAR``) of each frame to
     600x960 and 601x959 (``resize``), the sha256 of ``cv2.imencode('.jpg')``
     of each frame at quality 90 and 95 (``encode``), and of each file of
     the JAX package's ``make_synthetic_argoverse`` at 2 x 11 frames of
@@ -34,8 +48,8 @@
 
     JAX_PLATFORMS=cpu python tests/torch_jpeg/make_fixtures.py
 
-Needs cv2 and the JAX package. The files are committed; run this again
-only to change them, then commit the new digests with them.
+Needs cv2, PIL and the JAX package. The files are committed; run this
+again only to change them, then commit the new digests with them.
 """
 
 from __future__ import annotations
@@ -99,6 +113,101 @@ def first_scans(buf: bytes, k: int) -> bytes:
             return buf[:p] + b"\xff\xd9"
 
 
+# (h, v) of the first and the middle components of each sampling (the
+# fourth component of a CMYK or YCCK frame is sampled as the first)
+CODING_SAMPLINGS = {"s411": ((4, 1), (1, 1)), "s420": ((2, 2), (1, 1)), "s422": ((2, 1), (1, 1)),
+                    "s440": ((1, 2), (1, 1)), "s444": ((1, 1), (1, 1))}
+DAC = {("dc", 0): (1, 4), ("dc", 1): (0, 2), ("ac", 0): 12, ("ac", 1): 3}
+
+
+def write_codings(out: Path, frames_dir: Path, small_dir: Path, crop) -> None:
+    """The files of ``codings/`` (see the module's docstring)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from tests.torch_jpeg_codings import (SIMPLE_PROGRESSION_1, SIMPLE_PROGRESSION_3,
+                                          dct_coefficients, read_coefficients, write_arith,
+                                          write_lossless)
+    from tests.torch_jpeg_scans import geometry, write_jpeg
+
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "frames" / "seq00").mkdir(parents=True)
+    (out / "small").mkdir(parents=True)
+    seq = [([0, 1, 2], 0, 63, 0, 0)]
+    for name, kw in (("000000.jpg", {}), ("000001.jpg", {"restart": 60, "dac": DAC}),
+                     ("000002.jpg", {})):
+        h, w, samp, quant, coefs = read_coefficients((frames_dir / name).read_bytes())
+        progressive = name == "000002.jpg"
+        (out / "frames" / "seq00" / name).write_bytes(write_arith(
+            coefs, h, w, samp, quant, SIMPLE_PROGRESSION_3 if progressive else seq, progressive,
+            **kw))
+
+    def small(name: str, data: bytes) -> None:
+        (out / "small" / name).write_bytes(data)
+
+    img = crop[:37, :53].astype(np.int64)
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    # jccolor.c's YCbCr of the pixels, and a K plane
+    y = np.round(0.299 * r + 0.587 * g + 0.114 * b)
+    cb = np.round(128 - 0.168736 * r - 0.331264 * g + 0.5 * b)
+    cr = np.round(128 + 0.5 * r - 0.418688 * g - 0.081312 * b)
+    k = 255 - (np.maximum(np.maximum(r, g), b) // 2)
+    rng = np.random.default_rng(0)
+    quant = [rng.integers(2, 12, 64) for _ in range(4)]
+
+    def dct_file(planes, samp, writer, **kw):
+        geo, hmax, vmax = geometry(37, 53, samp)
+        coefs = [dct_coefficients(p[::vmax // v, ::hmax // h], quant[c], (bh, bw))
+                 for c, (p, (h, v), (_, _, bw, bh)) in enumerate(zip(planes, samp, geo))]
+        comps = list(range(len(samp)))
+        if writer == "arith":
+            return write_arith(coefs, 37, 53, samp, quant[:len(samp)], [(comps, 0, 63, 0, 0)],
+                               False, **kw)
+        return write_jpeg(coefs, 37, 53, samp, quant[:len(samp)], [(comps, 0, 63)], False, **kw)
+
+    for psv, (sname, (first, middle)) in enumerate(sorted(CODING_SAMPLINGS.items()), 1):
+        h, w, samp, qt, coefs = read_coefficients((small_dir / f"{sname}_37x53.jpg").read_bytes())
+        small(f"arith_seq_{sname}_37x53.jpg", write_arith(coefs, h, w, samp, qt, seq, False))
+        small(f"arith_prog_{sname}_37x53.jpg",
+              write_arith(coefs, h, w, samp, qt, SIMPLE_PROGRESSION_3, True))
+        small(f"arith_dac_restart_{sname}_37x53.jpg",
+              write_arith(coefs, h, w, samp, qt, seq, False, restart=2, dac=DAC))
+        samp3, samp4 = [first, middle, middle], [first, middle, middle, first]
+        hmax, vmax = max(a for a, _ in samp3), max(a for _, a in samp3)
+        planes = [p[::vmax // v, ::hmax // hh][:-(-37 * v // vmax), :-(-53 * hh // hmax)]
+                  for p, (hh, v) in zip((r, g, b), samp3)]
+        small(f"lossless_p{psv}_{sname}_37x53.jpg", write_lossless(
+            planes, 37, 53, samp3, 8, psv, pt=psv % 3, restart_rows=psv % 2))
+        small(f"cmyk_{sname}_37x53.jpg", dct_file((r, g, b, k), samp4, "huffman", adobe=0))
+        small(f"ycck_{sname}_37x53.jpg", dct_file((y, cb, cr, k), samp4, "huffman", adobe=2))
+        small(f"rgb_adobe_{sname}_37x53.jpg", dct_file((r, g, b), samp3, "huffman", adobe=0))
+        small(f"rgb_ids_{sname}_37x53.jpg", dct_file((r, g, b), samp3, "huffman",
+                                                     ids=[82, 71, 66]))
+    small("arith_ycck_s420_37x53.jpg", dct_file(
+        (y, cb, cr, k), [(2, 2), (1, 1), (1, 1), (2, 2)], "arith", adobe=2))
+    small("lossless_cmyk_37x53.jpg", write_lossless((r, g, b, k), 37, 53, [(1, 1)] * 4, 8, 7,
+                                                    adobe=0))
+    h, w, samp, qt, coefs = read_coefficients((small_dir / "gray_37x53.jpg").read_bytes())
+    small("arith_seq_gray_37x53.jpg", write_arith(coefs, h, w, samp, qt, [([0], 0, 63, 0, 0)],
+                                                  False))
+    small("arith_prog_gray_37x53.jpg", write_arith(coefs, h, w, samp, qt, SIMPLE_PROGRESSION_1,
+                                                   True))
+    h, w, samp, qt, coefs = read_coefficients((small_dir / "restart_120x161.jpg").read_bytes())
+    small("arith_restart_120x161.jpg", write_arith(coefs, h, w, samp, qt, seq, False, restart=3))
+    whole = write_arith(coefs, h, w, samp, qt, SIMPLE_PROGRESSION_3, True, restart=3)
+    small("arith_incomplete_4scans_120x161.jpg", first_scans(whole, 4))
+    pil = Image.fromarray(np.ascontiguousarray(crop[..., ::-1]))
+    for name, im, kw in (("pil_cmyk_q90_120x161.jpg", pil.convert("CMYK"), {}),
+                         ("pil_cmyk_s420_q90_120x161.jpg", pil.convert("CMYK"),
+                          {"subsampling": 2}),
+                         ("pil_rgb_q90_120x161.jpg", pil, {"keep_rgb": True})):
+        data = io.BytesIO()
+        im.save(data, "JPEG", quality=90, **kw)
+        small(name, data.getvalue())
+
+
 def main() -> None:
     import cv2
     import numpy as np
@@ -160,6 +269,7 @@ def main() -> None:
     plain = (small_dir / "s420_37x53.jpg").read_bytes()
     (small_dir / "exif6_37x53.jpg").write_bytes(with_orientation(plain, 6))
     (small_dir / "no_dht_37x53.jpg").write_bytes(without_dht(plain))
+    write_codings(HERE / "codings", frames_dir, small_dir, crop)
 
     small = crop[:37, :53]
     wide = small.astype(np.uint16) * 257
@@ -198,6 +308,12 @@ def main() -> None:
                 assert ok, rel
                 encode[rel][f"q{q}"] = {"size": len(buf),
                                         "sha256": hashlib.sha256(buf.tobytes()).hexdigest()}
+    from tests.torch_jpeg_codings import four_component_frame
+
+    frame0 = (frames_dir / "000000.jpg").read_bytes()
+    derived = {name: digest(cv2.imdecode(np.frombuffer(four_component_frame(frame0, t), np.uint8),
+                                         cv2.IMREAD_COLOR))
+               for name, t in (("cmyk_frame", 0), ("ycck_frame", 2))}
     from_disk = {}
     with tempfile.TemporaryDirectory() as tmp:
         make_synthetic_argoverse(tmp, **FROM_DISK)
@@ -205,7 +321,8 @@ def main() -> None:
             from_disk[path.relative_to(tmp).as_posix()] = hashlib.sha256(
                 path.read_bytes()).hexdigest()
     with open(HERE / "digests.json", "w") as f:
-        json.dump({"cv2": cv2.__version__, "decode": decode, "resize": resize, "png": png,
+        json.dump({"cv2": cv2.__version__, "decode": decode, "derived": derived,
+                   "resize": resize, "png": png,
                    "encode": encode, "from_disk": {"params": FROM_DISK, "sha256": from_disk}},
                   f, indent=1)
         f.write("\n")

@@ -16,7 +16,7 @@ and ``tests/torch_jpeg/make_fixtures.py``.
 from __future__ import annotations
 
 import struct
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -209,33 +209,67 @@ def _scan_tokens(coefs, comps, ss, se, progressive, mcus, restart):
     return tokens
 
 
-def write_jpeg(coefs, height: int, width: int, sampling, quant, script, progressive: bool,
-               restart: int = 0) -> bytes:
-    """A JPEG of ``coefs`` (as ``random_coefficients`` gives them) with
-    components 1, 2, ... at ``sampling`` [(h, v), ...], quantization table
-    ``quant[c]`` (64 values, natural order) each, and the scans of
-    ``script``: (component indices, Ss, Se), Ah = Al = 0. Sequential
-    (SOF0) scans code 0..63 whatever Ss, Se say."""
-    geo, hmax, vmax = geometry(height, width, sampling)
+def adobe_segment(transform: int) -> bytes:
+    """An Adobe APP14 segment (version 100, no flags) naming ``transform``."""
+    return segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform))
+
+
+def header(height: int, width: int, sampling, quant, marker: int, precision: int = 8,
+           ids: Optional[Sequence[int]] = None, adobe: Optional[int] = None,
+           restart: int = 0) -> bytes:
+    """SOI, an Adobe APP14 segment (``adobe`` its transform), a DQT segment
+    per table (``quant[c]``, 64 values in natural order, for component
+    ``c``; 16-bit entries at 12 bits or where a value needs them), the
+    frame header ``marker`` (component ``c`` with id ``ids[c]``, default
+    ``c + 1``) and DRI."""
+    ids = list(ids) if ids is not None else [c + 1 for c in range(len(sampling))]
     out = bytearray(b"\xff\xd8")
+    if adobe is not None:
+        out += adobe_segment(adobe)
     for c, q in enumerate(quant):
-        out += segment(0xDB, bytes([c]) + bytes(int(x) for x in np.asarray(q)[ZIGZAG]))
-    sof = struct.pack(">BHHB", 8, height, width, len(sampling)) + b"".join(
-        struct.pack(">BBB", c + 1, (h << 4) | v, c) for c, (h, v) in enumerate(sampling))
-    out += segment(0xC2 if progressive else 0xC0, sof)
+        q = np.asarray(q, np.int64)[ZIGZAG]
+        if precision > 8 or q.max() > 255:
+            out += segment(0xDB, bytes([0x10 | c]) + b"".join(struct.pack(">H", int(x)) for x in q))
+        else:
+            out += segment(0xDB, bytes([c]) + bytes(int(x) for x in q))
+    out += segment(marker, struct.pack(">BHHB", precision, height, width, len(sampling))
+                   + b"".join(struct.pack(">BBB", ids[c], (h << 4) | v, min(c, len(quant) - 1) if quant else 0)
+                              for c, (h, v) in enumerate(sampling)))
     if restart:
         out += segment(0xDD, struct.pack(">H", restart))
+    return bytes(out)
+
+
+def scan_mcus(height: int, width: int, sampling, comps: Sequence[int]):
+    """The MCUs of a scan of ``comps``: for each, [(position in the scan,
+    (component, block row, block column))], as libjpeg walks them (one
+    component: its own blocks; several: whole MCUs of the frame, dummy
+    blocks included)."""
+    geo, hmax, vmax = geometry(height, width, sampling)
+    if len(comps) == 1:
+        c = comps[0]
+        wib, hib = geo[c][:2]
+        return [[(0, (c, by, bx))] for by in range(hib) for bx in range(wib)]
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    return [[(pos, (c, my * sampling[c][1] + y, mx * sampling[c][0] + x))
+             for pos, c in enumerate(comps)
+             for y in range(sampling[c][1]) for x in range(sampling[c][0])]
+            for my in range(mcuy) for mx in range(mcux)]
+
+
+def write_jpeg(coefs, height: int, width: int, sampling, quant, script, progressive: bool,
+               restart: int = 0, precision: int = 8, ids=None, adobe=None) -> bytes:
+    """A JPEG of ``coefs`` (as ``random_coefficients`` gives them) with
+    components 1, 2, ... (or ``ids``) at ``sampling`` [(h, v), ...],
+    quantization table ``quant[c]`` (64 values, natural order) each, and
+    the scans of ``script``: (component indices, Ss, Se), Ah = Al = 0.
+    Sequential (SOF0, or SOF1 at a precision other than 8) scans code
+    0..63 whatever Ss, Se say. ``adobe``: an APP14 segment's transform."""
+    ids = list(ids) if ids is not None else [c + 1 for c in range(len(sampling))]
+    marker = 0xC2 if progressive else (0xC0 if precision == 8 else 0xC1)
+    out = bytearray(header(height, width, sampling, quant, marker, precision, ids, adobe, restart))
     for comps, ss, se in script:
-        if len(comps) == 1:
-            c = comps[0]
-            wib, hib = geo[c][:2]
-            mcus = [[(0, (c, by, bx))] for by in range(hib) for bx in range(wib)]
-        else:
-            mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-            mcus = [[(pos, (c, my * sampling[c][1] + y, mx * sampling[c][0] + x))
-                     for pos, c in enumerate(comps)
-                     for y in range(sampling[c][1]) for x in range(sampling[c][0])]
-                    for my in range(mcuy) for mx in range(mcux)]
+        mcus = scan_mcus(height, width, sampling, comps)
         tokens = _scan_tokens(coefs, comps, ss, se, progressive, mcus, restart)
         freq = {}
         for t in tokens:
@@ -251,7 +285,7 @@ def write_jpeg(coefs, height: int, width: int, sampling, quant, script, progress
         if dht:
             out += segment(0xC4, bytes(dht))
         out += segment(0xDA, bytes([len(comps)]) + b"".join(
-            bytes([c + 1, (pos << 4) | pos]) for pos, c in enumerate(comps))
+            bytes([ids[c], (pos << 4) | pos]) for pos, c in enumerate(comps))
             + bytes([ss, se, 0]))
         bw, rst = _Bits(), 0
         for t in tokens:
