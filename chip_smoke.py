@@ -16,7 +16,8 @@ decoded and the JPEGs resized and encoded by the port's native code against
 cv2's digests, the host path against ``device_preproc`` bit for bit,
 ``stream_det`` and ``offline_det`` reading the frames from disk,
 ``offline_det`` from the progressive and the arithmetic frames with the
-baseline frames' rows), and times the step and each kernel with CUDA
+baseline frames' rows, ``tools/vis_results.py``'s overlays drawn by the
+port's ``vis/draw.py`` against the JAX tool's file digests), and times the step and each kernel with CUDA
 events, one call at a time and back to back. Then it serves 8 camera streams
 through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
 per-stream restart, fp32 rows against ``CUDAStreamDetector``), times the
@@ -98,6 +99,7 @@ import contextlib
 import copy
 import functools
 import hashlib
+import io
 import itertools
 import json
 import pickle
@@ -3355,7 +3357,10 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     ``stream_det`` under the wall clock and with ``--infinite``, and
     ``offline_det``, host path, no ``load_frame``, and ``offline_det`` again
     from the folders of progressive and of arithmetic frames, whose rows
-    must equal the baseline folder's bit for bit. Kernel launches are counted from 0 before
+    must equal the baseline folder's bit for bit; last the detection
+    overlays of ``tools/vis_results.py`` drawn without cv2 against the JAX
+    tool's file digests, and the time to label a frame (``draw_overlays``).
+    Kernel launches are counted from 0 before
     each run and read after it. ``device="cpu"`` rehearses the phase
     without a card."""
     import torch
@@ -3546,6 +3551,7 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
     check({r["image_id"] for r in off["results_ccf"]} == set(range(n))
           and launches["offline_det"] == {"nms": k, "preproc": 0},
           f"image_io: offline_det from disk: launches {launches['offline_det']}")
+    drawing = draw_overlays(out_dir / "vis", raws[0])
     cv2_loaded = sys.modules.get("cv2") is not None
     check(not cv2_loaded, "image_io: cv2 was imported")
     emit("image_io", fixtures=len(digests["decode"]), png_fixtures=len(digests["png"]),
@@ -3566,9 +3572,44 @@ def phase_image_io(out_dir: Path, smi: str, device: str = "cuda") -> dict:
          infinite_results=len(inf["seq00"]["timestamps"]),
          offline_detections=len(off["results_ccf"]),
          offline_det_progressive_rows_equal=True, offline_det_arithmetic_rows_equal=True,
-         cli_s=cli_s, launches=launches,
+         cli_s=cli_s, launches=launches, drawing=drawing,
          cv2_loaded=cv2_loaded, seconds=time.perf_counter() - t_phase)
     return launches
+
+
+def draw_overlays(out_dir: Path, frame: np.ndarray) -> dict:
+    """The port's ``tools/vis_results.py`` without cv2 on the committed
+    overlay fixture (``tests/torch_vis``: seeded detection rows on the three
+    1200x1920 frames, runs plain, ``--vis-scale 0.75`` and ``--contrast``
+    with the swing divider): every written file's sha256 must be the JAX
+    tool's (cv2's ``rectangle``, ``putText`` and ``imwrite``), pinned in
+    ``digests.json`` by the CPU tests. Then the host time to label one frame
+    (``vis.draw_detections`` of frame 0's rows at ``--score-th 0.3``,
+    median of ``IMAGE_IO_TIMED``)."""
+    from streamyolo_torch.data.argoverse_classes import ARGOVERSE_CLASSES
+    from streamyolo_torch.vis import draw_detections
+    from streamyolo_torch.tools import vis_results
+    from tests.torch_vis import fixture
+
+    pinned = json.loads(fixture.DIGESTS.read_text())
+    results = fixture.write_results(out_dir / "results")
+    with contextlib.redirect_stdout(io.StringIO()):
+        for run in fixture.RUNS:
+            vis_results.main(fixture.tool_args(run, out_dir / run, results))
+    for run in fixture.RUNS:
+        got = fixture.file_digests(out_dir / run)
+        check(got == pinned[run], f"image_io: vis_results {run} wrote {got}, the JAX tool "
+                                  f"{pinned[run]}")
+    rows = [r for r in json.loads(fixture.DETECTIONS.read_text()) if r["image_id"] == 0]
+    boxes = [[x, y, x + w, y + h] for x, y, w, h in (r["bbox"] for r in rows)]
+    labels = [r["category_id"] for r in rows]
+    scores = [r["score"] for r in rows]
+    label = lambda: draw_detections(frame, boxes, labels, ARGOVERSE_CLASSES, scores=scores,
+                                    score_th=0.3)
+    return {"vis_results_files": sum(len(v) for v in pinned.values()),
+            "vis_results_digests_equal_jax_tool": True,
+            "label_frame_ms": host_ms(label), "labels_per_frame": sum(s >= 0.3 for s in scores),
+            "frame": list(frame.shape[:2])}
 
 
 def png_of(frame: np.ndarray) -> bytes:

@@ -11,7 +11,11 @@
     ``jpeg_encode`` (byte-exact with ``cv2.imencode('.jpg')``),
     ``png_data_size`` / ``png_decode`` (a PNG's inflated pixel data, as
     ``cv2.imread`` reads it), ``exif_orientation_tag`` and ``resize_linear_u8`` (``cv2.resize`` with ``INTER_LINEAR``),
-    for ``data/image_io.py`` and ``data/cv2_ops.py``.
+    for ``data/image_io.py`` and ``data/cv2_ops.py``;
+  * ``streamyolo_torch/native/draw.cpp``: ``draw_text`` / ``text_extent``
+    (``cv2.putText`` / ``cv2.getTextSize`` with ``FONT_HERSHEY_SIMPLEX``:
+    cv2 5.0's TrueType rendering of the Rubik variable font) and
+    ``draw_rectangle`` (``cv2.rectangle``), bit-exact, for ``vis/draw.py``.
 
 Each library is built with ``g++`` at first use, not at import, into
 ``build/native/`` of the checkout, named by a hash of its source and flags;
@@ -43,6 +47,10 @@ CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 # the resize's float map must round as NumPy's does (no fused multiply-add);
 # corrupt JPEG coefficients wrap rather than overflow into undefined behaviour
 IMAGE_IO_FLAGS = CXX_FLAGS + ("-ffp-contract=off", "-fwrapv")
+DRAW_SOURCE = Path(__file__).resolve().parent / "draw.cpp"
+# the rasteriser's float arithmetic must round as cv2's build does (no fused
+# multiply-add)
+DRAW_FLAGS = CXX_FLAGS + ("-ffp-contract=off",)
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -90,6 +98,7 @@ def _load(source: Path, flags, declare) -> ctypes.CDLL:
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
 
 def _declare_native(lib: ctypes.CDLL) -> None:
@@ -159,6 +168,30 @@ def _declare_image_io(lib: ctypes.CDLL) -> None:
     lib.exif_orientation_tag.restype = ctypes.c_int
 
 
+def _declare_draw(lib: ctypes.CDLL) -> None:
+    lib.draw_text.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,                       # font, size
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # img, h, w, channels
+        _i32p, ctypes.c_int64,                                 # code points, n
+        ctypes.c_int64, ctypes.c_int64,                        # org x, y
+        ctypes.c_int64, ctypes.c_int64, _i32p,                 # pixel size, weight, colour
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.draw_text.restype = ctypes.c_int
+    lib.text_extent.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, _i32p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, _i64p,                 # size, weight, out[3]
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.text_extent.restype = ctypes.c_int
+    lib.draw_rectangle.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # img, h, w, channels
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # x1, y1, x2, y2
+        _i32p, ctypes.c_int64,                                 # colour, thickness
+    ]
+    lib.draw_rectangle.restype = None
+
+
 def load() -> ctypes.CDLL:
     """The loaded ``native/streamyolo_native.cpp`` library, built on first use."""
     return _load(SOURCE, CXX_FLAGS, _declare_native)
@@ -167,6 +200,11 @@ def load() -> ctypes.CDLL:
 def load_image_io() -> ctypes.CDLL:
     """The loaded ``image_io.cpp`` library, built on first use."""
     return _load(IMAGE_IO_SOURCE, IMAGE_IO_FLAGS, _declare_image_io)
+
+
+def load_draw() -> ctypes.CDLL:
+    """The loaded ``draw.cpp`` library, built on first use."""
+    return _load(DRAW_SOURCE, DRAW_FLAGS, _declare_draw)
 
 
 def cocoeval_run_cpp(

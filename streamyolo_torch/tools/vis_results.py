@@ -10,9 +10,11 @@ of ``tools/vis_results.py``: per-frame overlays of a CCF results pkl
 ``--contrast B.pkl`` renders a second experiment's detections on the same
 frames and composes the two panes split-screen (A before the divider, B
 after), with ``--split-pos``, ``--horizontal`` and the ``--split-animation
-swing`` divider sweep. Frames are read and written with the port's codecs
-(``data/image_io.py``: ``imwrite`` writes cv2's bytes for a JPEG or PNG
-name); drawing them (``vis_det``'s labels) and ``--video`` need cv2.
+swing`` divider sweep. Frames are read, drawn on and written without cv2
+(``data/image_io.py``, whose ``imwrite`` writes cv2's bytes for a JPEG or
+PNG name, and ``vis/draw.py``, cv2 5.0's ``rectangle`` and ``putText`` bit
+for bit), so the files equal the JAX tool's byte for byte; only ``--video``
+needs cv2 (``vis.make_video``'s MPEG-4 encoder).
 """
 
 from __future__ import annotations

@@ -5,16 +5,15 @@ split-screen comparisons (``vis_contrast``, ``contrast_composite`` with the
 galleries.
 
 Frames are read with ``data/image_io.py::imread``, rescaled with
-``data/cv2_ops.py::resize_u8`` and written with ``data/image_io.py::imwrite``
-(``cv2.imread``, ``cv2.resize`` and ``cv2.imwrite`` bit for bit for JPEG and
-PNG, no cv2; any other extension raises ``ValueError``). Drawing and video
-still need cv2, imported inside the functions that use them, so the module
-imports on a host without cv2 (the card's machine), where the pure-NumPy
-parts (``vis_contrast``, ``contrast_composite``, the easing and the
-galleries) and the writing work: the labels of ``draw_detections`` are
-``cv2.putText``'s Hershey glyphs, a table the repository does not hold (so
-a NumPy ``cv2.rectangle`` would not free the drawing of cv2), and
-``make_video`` needs cv2's MPEG-4 encoder.
+``data/cv2_ops.py::resize_u8``, drawn on with ``vis/draw.py`` and written
+with ``data/image_io.py::imwrite`` (``cv2.imread``, ``cv2.resize``,
+``cv2.rectangle``, ``cv2.putText`` and ``cv2.imwrite`` bit for bit for JPEG
+and PNG, no cv2; any other extension raises ``ValueError``). cv2 5.0's
+``putText`` renders ``FONT_HERSHEY_SIMPLEX`` with the TrueType font it
+embeds, which ``vis/draw.py`` renders the same way (``native/draw.cpp``).
+Only ``make_video`` still needs cv2, for its MPEG-4 encoder
+(``cv2.VideoWriter``), imported inside it, so the module imports and draws
+on a host without cv2 (the card's machine).
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import numpy as np
 
 from streamyolo_torch.data.cv2_ops import resize_u8
 from streamyolo_torch.data.image_io import imread, imwrite
+from streamyolo_torch.vis.draw import put_text, rectangle
 
 # deterministic per-class palette
 _PALETTE = [
@@ -47,8 +47,6 @@ def draw_detections(
     out_scale: float = 1.0,
 ) -> np.ndarray:
     """Draw boxes/labels(/scores/track-ids) on a copy of ``img`` (BGR)."""
-    import cv2
-
     canvas = img.copy()
     for i, box in enumerate(bboxes_ltrb):
         if scores is not None and scores[i] < score_th:
@@ -56,14 +54,13 @@ def draw_detections(
         x1, y1, x2, y2 = (int(round(v)) for v in box[:4])
         cls = int(labels[i])
         color = _PALETTE[cls % len(_PALETTE)]
-        cv2.rectangle(canvas, (x1, y1), (x2, y2), color, 2)
+        rectangle(canvas, (x1, y1), (x2, y2), color, 2)
         text = class_names[cls] if cls < len(class_names) else str(cls)
         if scores is not None:
             text += f" {scores[i]:.2f}"
         if tracks is not None:
             text += f" #{int(tracks[i])}"
-        cv2.putText(canvas, text, (x1, max(y1 - 4, 10)),
-                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1, cv2.LINE_AA)
+        put_text(canvas, text, (x1, max(y1 - 4, 10)), 0.5, color, 1)
     if out_scale != 1.0:
         # cv2's size for fx = fy = out_scale; the map's scale is the sizes'
         # ratio (cv2's fx path takes out_scale itself: equal where the scaled
@@ -189,7 +186,9 @@ def make_video(
     numbered: bool = False,
 ) -> str:
     """Encode an ordered list of frames into an mp4 (`make_videos.py` /
-    `make_videos_numbered.py` roles; ``numbered`` stamps the frame index)."""
+    `make_videos_numbered.py` roles; ``numbered`` stamps the frame index,
+    drawn without cv2). The encoder is still ``cv2.VideoWriter``'s MPEG-4
+    (``mp4v``), so this function alone needs cv2."""
     import cv2
 
     assert frame_paths, "no frames"
@@ -201,8 +200,7 @@ def make_video(
     for i, p in enumerate(frame_paths):
         frame = resize_u8(imread(p), h, w)
         if numbered:
-            cv2.putText(frame, str(i), (10, 30), cv2.FONT_HERSHEY_SIMPLEX,
-                        1.0, (0, 255, 255), 2, cv2.LINE_AA)
+            put_text(frame, str(i), (10, 30), 1.0, (0, 255, 255), 2)
         writer.write(frame)
     writer.release()
     return out_path

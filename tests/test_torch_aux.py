@@ -1,6 +1,7 @@
 """The port's auxiliary modules against the JAX package, on the CPU:
-``vis`` (drawn images, composites and files bit for bit: both sides draw
-with the same cv2, the port writes with its own ``imwrite``),
+``vis`` (drawn images, composites and files bit for bit: the JAX package
+draws and writes with cv2, the port with its own ``vis/draw.py`` and
+``imwrite``; ``make_video`` still encodes with cv2),
 ``tools/vis_results.py`` (the rendered frames of both tools
 byte for byte), the wandb sink without the ``wandb`` package,
 ``__version__`` and the box helpers the mosaic's mixup uses
