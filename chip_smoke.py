@@ -17,8 +17,10 @@ cv2's digests, the host path against ``device_preproc`` bit for bit,
 ``stream_det`` and ``offline_det`` reading the frames from disk,
 ``offline_det`` from the progressive and the arithmetic frames with the
 baseline frames' rows, ``tools/vis_results.py``'s overlays drawn by the
-port's ``vis/draw.py`` against the JAX tool's file digests), and times the step and each kernel with CUDA
-events, one call at a time and back to back. Then it serves 8 camera streams
+port's ``vis/draw.py`` against the JAX tool's file digests, and the MP4s of
+``vis.make_video`` and ``vis_results --video`` (the port's MPEG-4 encoder,
+``vis/video.py``) against the digests the CPU tests pin), and times the
+step and each kernel with CUDA events, one call at a time and back to back. Then it serves 8 camera streams
 through ``MultiStreamDetector`` (one kernel-B1 launch per batched step, a
 per-stream restart, fp32 rows against ``CUDAStreamDetector``), times the
 batched step at 1, 8 and 56 streams, scores the port with the simulated-clock
@@ -3585,10 +3587,17 @@ def draw_overlays(out_dir: Path, frame: np.ndarray) -> dict:
     tool's (cv2's ``rectangle``, ``putText`` and ``imwrite``), pinned in
     ``digests.json`` by the CPU tests. Then the host time to label one frame
     (``vis.draw_detections`` of frame 0's rows at ``--score-th 0.3``,
-    median of ``IMAGE_IO_TIMED``)."""
+    median of ``IMAGE_IO_TIMED``). Last the videos (``tests/torch_video``):
+    ``vis.make_video`` on the seeded sequences and the plain run again with
+    ``--video``, each MP4's sha256 against ``digests.json`` (the bytes cv2
+    reads back within bounds of the JAX package's file on the CPU), and the
+    host time to encode one 1200x1920 frame (``VideoWriter.write`` of frame
+    0 rolled 7 px a call, mostly P-VOPs, median of ``IMAGE_IO_TIMED``)."""
     from streamyolo_torch.data.argoverse_classes import ARGOVERSE_CLASSES
     from streamyolo_torch.vis import draw_detections
+    from streamyolo_torch.vis.video import VideoWriter
     from streamyolo_torch.tools import vis_results
+    from tests.torch_video import fixture as video_fixture
     from tests.torch_vis import fixture
 
     pinned = json.loads(fixture.DIGESTS.read_text())
@@ -3606,10 +3615,21 @@ def draw_overlays(out_dir: Path, frame: np.ndarray) -> dict:
     scores = [r["score"] for r in rows]
     label = lambda: draw_detections(frame, boxes, labels, ARGOVERSE_CLASSES, scores=scores,
                                     score_th=0.3)
+    label_ms = host_ms(label)
+    pinned_videos = json.loads(video_fixture.DIGESTS.read_text())
+    t = time.perf_counter()
+    videos = video_fixture.write_port_videos(out_dir / "video")
+    videos_s = time.perf_counter() - t
+    check(videos == pinned_videos, f"image_io: make_video wrote {videos}, pinned {pinned_videos}")
+    rolled = itertools.cycle([np.roll(frame, 7 * i, axis=1) for i in range(5)])
+    with VideoWriter(str(out_dir / "video" / "timed.mp4"), 30.0, frame.shape[1::-1]) as writer:
+        encode_ms = host_ms(lambda: writer.write(next(rolled)))
     return {"vis_results_files": sum(len(v) for v in pinned.values()),
             "vis_results_digests_equal_jax_tool": True,
-            "label_frame_ms": host_ms(label), "labels_per_frame": sum(s >= 0.3 for s in scores),
-            "frame": list(frame.shape[:2])}
+            "label_frame_ms": label_ms, "labels_per_frame": sum(s >= 0.3 for s in scores),
+            "frame": list(frame.shape[:2]), "videos": sorted(videos),
+            "video_digests_equal_pinned": True, "make_videos_s": videos_s,
+            "encode_ms_per_frame": encode_ms}
 
 
 def png_of(frame: np.ndarray) -> bytes:

@@ -4,9 +4,9 @@
 The same protocol as ``eval/cocoeval.py::COCOeval``; the whole evaluate +
 accumulate pass (per-cell IoU, greedy matching across thresholds and area
 ranges, global score sort, PR curves) runs in one native call
-(``native/streamyolo_native.cpp::cocoeval_run``). The Python side prepares
-flat per-cell arrays (lexsort + bincount). Per-image results
-(``evalImgs``) are not materialised; ``eval`` and ``stats`` are.
+(``streamyolo_torch/native/streamyolo_native.cpp::cocoeval_run``). The
+Python side prepares flat per-cell arrays (lexsort + bincount). Per-image
+results (``evalImgs``) are not materialised; ``eval`` and ``stats`` are.
 
 ``evaluator_class`` picks ``COCOeval_opt`` when the native library builds and
 the NumPy ``COCOeval`` otherwise, and logs which one scores.

@@ -1,7 +1,8 @@
 """ctypes bindings of the port's host-side native libraries:
 
-  * ``native/streamyolo_native.cpp`` (the file the JAX package binds too):
-    ``cocoeval_run`` (the whole COCO evaluate + accumulate pass, for
+  * ``streamyolo_torch/native/streamyolo_native.cpp`` (the port's copy of
+    the JAX package's ``native/streamyolo_native.cpp``): ``cocoeval_run``
+    (the whole COCO evaluate + accumulate pass, for
     ``eval/cocoeval_ext.py::COCOeval_opt``), ``iou_assoc_greedy`` (the
     greedy track association of ``stream/track.py``) and ``bbox_iou_ltwh``;
   * ``streamyolo_torch/native/image_io.cpp``: ``jpeg_header`` /
@@ -15,7 +16,18 @@
   * ``streamyolo_torch/native/draw.cpp``: ``draw_text`` / ``text_extent``
     (``cv2.putText`` / ``cv2.getTextSize`` with ``FONT_HERSHEY_SIMPLEX``:
     cv2 5.0's TrueType rendering of the Rubik variable font) and
-    ``draw_rectangle`` (``cv2.rectangle``), bit-exact, for ``vis/draw.py``.
+    ``draw_rectangle`` (``cv2.rectangle``), bit-exact, for ``vis/draw.py``;
+  * ``streamyolo_torch/native/video.cpp``: ``video_open`` / ``video_write``
+    / ``video_close``, the MP4 file ``cv2.VideoWriter`` writes with
+    ``fourcc("mp4v")`` (an MPEG-4 Part 2 simple-profile encoder: H.263
+    quantisation at quantiser 3, an I-VOP every 12 frames, P-VOPs with
+    half-pel motion, FFmpeg's simple IDCT in the reconstruction, and an MP4
+    muxer), for ``vis/video.py``'s ``VideoWriter`` behind
+    ``vis.make_video``; and its numeric stages alone for the tests
+    (``video_bgr_to_yuv420``, ``video_forward_blocks``,
+    ``video_inverse_blocks``, ``video_recon``). FFmpeg's bytes are not
+    matched: ``tests/test_torch_video.py`` holds what cv2 reads back from
+    the file against the JAX package's cv2 file, and pins the bytes.
 
 Each library is built with ``g++`` at first use, not at import, into
 ``build/native/`` of the checkout, named by a hash of its source and flags;
@@ -40,17 +52,21 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
-SOURCE = ROOT / "native" / "streamyolo_native.cpp"
-IMAGE_IO_SOURCE = Path(__file__).resolve().parent / "image_io.cpp"
+HERE = Path(__file__).resolve().parent
+SOURCE = HERE / "streamyolo_native.cpp"
+IMAGE_IO_SOURCE = HERE / "image_io.cpp"
 BUILD_DIR = ROOT / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 # the resize's float map must round as NumPy's does (no fused multiply-add);
 # corrupt JPEG coefficients wrap rather than overflow into undefined behaviour
 IMAGE_IO_FLAGS = CXX_FLAGS + ("-ffp-contract=off", "-fwrapv")
-DRAW_SOURCE = Path(__file__).resolve().parent / "draw.cpp"
+DRAW_SOURCE = HERE / "draw.cpp"
 # the rasteriser's float arithmetic must round as cv2's build does (no fused
 # multiply-add)
 DRAW_FLAGS = CXX_FLAGS + ("-ffp-contract=off",)
+VIDEO_SOURCE = HERE / "video.cpp"
+# macroblock rows are analysed on threads; nothing in the encoder is float
+VIDEO_FLAGS = CXX_FLAGS + ("-pthread",)
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -192,8 +208,35 @@ def _declare_draw(lib: ctypes.CDLL) -> None:
     lib.draw_rectangle.restype = None
 
 
+def _declare_video(lib: ctypes.CDLL) -> None:
+    lib.video_open.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,       # path, width, height
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,        # rate num, den, threads
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.video_open.restype = ctypes.c_void_p
+    lib.video_write.argtypes = [
+        ctypes.c_void_p, _u8p, ctypes.c_int64, ctypes.c_int64,  # frame, h, w
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.video_write.restype = ctypes.c_int
+    lib.video_close.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+    lib.video_close.restype = ctypes.c_int
+    lib.video_recon.argtypes = [ctypes.c_void_p, _u8p, _u8p, _u8p]
+    lib.video_recon.restype = None
+    lib.video_bgr_to_yuv420.argtypes = [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p, _u8p, _u8p]
+    lib.video_bgr_to_yuv420.restype = None
+    _i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+    lib.video_forward_blocks.argtypes = [_i16p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int64, _i16p]
+    lib.video_forward_blocks.restype = None
+    lib.video_inverse_blocks.argtypes = [_i16p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int64, _i32p]
+    lib.video_inverse_blocks.restype = None
+
+
 def load() -> ctypes.CDLL:
-    """The loaded ``native/streamyolo_native.cpp`` library, built on first use."""
+    """The loaded ``streamyolo_native.cpp`` library, built on first use."""
     return _load(SOURCE, CXX_FLAGS, _declare_native)
 
 
@@ -205,6 +248,11 @@ def load_image_io() -> ctypes.CDLL:
 def load_draw() -> ctypes.CDLL:
     """The loaded ``draw.cpp`` library, built on first use."""
     return _load(DRAW_SOURCE, DRAW_FLAGS, _declare_draw)
+
+
+def load_video() -> ctypes.CDLL:
+    """The loaded ``video.cpp`` library, built on first use."""
+    return _load(VIDEO_SOURCE, VIDEO_FLAGS, _declare_video)
 
 
 def cocoeval_run_cpp(

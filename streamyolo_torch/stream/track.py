@@ -4,8 +4,8 @@
 Boxes are ltwh. For each new detection j (in score order), the unmatched
 previous box of the same label with the highest IoU >= the threshold is
 claimed; unmatched new detections start fresh track ids. ``_greedy_match``
-is the Python oracle; ``native/streamyolo_native.cpp::iou_assoc_greedy`` is
-its C++ twin (bound in ``streamyolo_torch.native``), which ``iou_assoc``
+is the Python oracle; ``streamyolo_torch/native/streamyolo_native.cpp::iou_assoc_greedy``
+is its C++ twin (bound in ``streamyolo_torch.native``), which ``iou_assoc``
 uses when the native library builds. A failed build is logged with the
 compiler's message, and the Python version serves.
 """

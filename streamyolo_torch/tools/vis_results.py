@@ -13,8 +13,10 @@ after), with ``--split-pos``, ``--horizontal`` and the ``--split-animation
 swing`` divider sweep. Frames are read, drawn on and written without cv2
 (``data/image_io.py``, whose ``imwrite`` writes cv2's bytes for a JPEG or
 PNG name, and ``vis/draw.py``, cv2 5.0's ``rectangle`` and ``putText`` bit
-for bit), so the files equal the JAX tool's byte for byte; only ``--video``
-needs cv2 (``vis.make_video``'s MPEG-4 encoder).
+for bit), so the files equal the JAX tool's byte for byte. ``--video``
+encodes each sequence with ``vis.make_video`` (the port's MPEG-4 encoder,
+``vis/video.py``): the file cv2's ``mp4v`` writer makes, held to what cv2
+reads back from the JAX tool's video rather than to its bytes.
 """
 
 from __future__ import annotations

@@ -11,9 +11,11 @@ with ``data/image_io.py::imwrite`` (``cv2.imread``, ``cv2.resize``,
 and PNG, no cv2; any other extension raises ``ValueError``). cv2 5.0's
 ``putText`` renders ``FONT_HERSHEY_SIMPLEX`` with the TrueType font it
 embeds, which ``vis/draw.py`` renders the same way (``native/draw.cpp``).
-Only ``make_video`` still needs cv2, for its MPEG-4 encoder
-(``cv2.VideoWriter``), imported inside it, so the module imports and draws
-on a host without cv2 (the card's machine).
+``make_video`` encodes with ``vis/video.py::VideoWriter``
+(``native/video.cpp``), the MPEG-4 (``mp4v``) file ``cv2.VideoWriter``
+writes: the same stream syntax, GOP, quantiser and time base, read back by
+cv2 within fixed bounds of the JAX package's file, not its bytes. No part
+of the module needs cv2 (the card's machine has none).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 from streamyolo_torch.data.cv2_ops import resize_u8
 from streamyolo_torch.data.image_io import imread, imwrite
 from streamyolo_torch.vis.draw import put_text, rectangle
+from streamyolo_torch.vis.video import VideoWriter
 
 # deterministic per-class palette
 _PALETTE = [
@@ -186,23 +189,19 @@ def make_video(
     numbered: bool = False,
 ) -> str:
     """Encode an ordered list of frames into an mp4 (`make_videos.py` /
-    `make_videos_numbered.py` roles; ``numbered`` stamps the frame index,
-    drawn without cv2). The encoder is still ``cv2.VideoWriter``'s MPEG-4
-    (``mp4v``), so this function alone needs cv2."""
-    import cv2
-
+    `make_videos_numbered.py` roles; ``numbered`` stamps the frame index):
+    MPEG-4 Part 2 as ``cv2.VideoWriter`` with ``mp4v`` writes it, by the
+    port's own encoder (``vis/video.py``); a frame of another size is
+    resized to the first's."""
     assert frame_paths, "no frames"
     h, w = imread(frame_paths[0]).shape[:2]
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    writer = cv2.VideoWriter(
-        out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h)
-    )
-    for i, p in enumerate(frame_paths):
-        frame = resize_u8(imread(p), h, w)
-        if numbered:
-            put_text(frame, str(i), (10, 30), 1.0, (0, 255, 255), 2)
-        writer.write(frame)
-    writer.release()
+    with VideoWriter(out_path, fps, (w, h)) as writer:
+        for i, p in enumerate(frame_paths):
+            frame = resize_u8(imread(p), h, w)
+            if numbered:
+                put_text(frame, str(i), (10, 30), 1.0, (0, 255, 255), 2)
+            writer.write(frame)
     return out_path
 
 

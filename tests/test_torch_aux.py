@@ -1,7 +1,8 @@
 """The port's auxiliary modules against the JAX package, on the CPU:
 ``vis`` (drawn images, composites and files bit for bit: the JAX package
 draws and writes with cv2, the port with its own ``vis/draw.py`` and
-``imwrite``; ``make_video`` still encodes with cv2),
+``imwrite``; ``make_video``'s file, from the port's own MPEG-4 encoder, is
+read back with cv2),
 ``tools/vis_results.py`` (the rendered frames of both tools
 byte for byte), the wandb sink without the ``wandb`` package,
 ``__version__`` and the box helpers the mosaic's mixup uses
@@ -71,8 +72,16 @@ def test_video_and_galleries(tmp_path):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         cv2.imwrite(path, np.full((48, 64, 3), 40 * i, np.uint8))
         frames.append(path)
-    assert os.path.getsize(tvis.make_video(frames, str(tmp_path / "a.mp4"), fps=10,
-                                           numbered=True)) > 0
+    cap = cv2.VideoCapture(tvis.make_video(frames, str(tmp_path / "a.mp4"), fps=10,
+                                           numbered=True))
+    assert cap.get(cv2.CAP_PROP_FPS) == 10
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    assert shapes == [(48, 64, 3)] * 3
     for mod, name in ((tvis, "port"), (jvis, "jax")):
         mod.html_gallery(frames, str(tmp_path / f"{name}.html"), sample=2, seed=3)
         mod.html_all_sequences(str(tmp_path / "vis"), str(tmp_path / f"{name}_all.html"),
