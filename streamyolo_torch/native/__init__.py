@@ -30,18 +30,22 @@
     the file against the JAX package's cv2 file, and pins the bytes.
 
 Each library is built with ``g++`` at first use, not at import, into
-``build/native/`` of the checkout, named by a hash of its source and flags;
-a process-wide lock makes each build happen once in a process, and the
-result is written to a temporary name and renamed, so parallel processes
-(test workers, spawned loader workers) never load a half-written file and
-later ones load the finished one. A missing ``g++`` or a failed build
-raises ``NativeBuildError`` with the compiler's output; nothing stands in
-for a library that does not build.
+``build/native/`` of the checkout, named by a hash of its source and flags.
+A build happens once across processes (test workers, spawned loader
+workers): a thread lock serialises the callers of one process, and an
+``flock`` on ``<target>.lock`` beside the library the processes, so one
+compiles while the others wait and then load its file. The result is
+written to a temporary name and renamed, so no process loads a
+half-written file. A missing ``g++`` or a failed build raises
+``NativeBuildError`` with the compiler's output, in every process that
+waited on it too (each, finding no library, builds it itself); nothing
+stands in for a library that does not build.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -85,7 +89,6 @@ def _build(source: Path, flags, out: Path) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
         raise NativeBuildError(f"g++ not found: cannot build {source.name}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([cxx, *flags, str(source), "-o", str(tmp)],
                           capture_output=True, text=True)
@@ -96,6 +99,16 @@ def _build(source: Path, flags, out: Path) -> None:
     os.replace(tmp, out)
 
 
+def _build_once(source: Path, flags, out: Path) -> None:
+    """``_build`` under an exclusive ``flock`` on ``<out>.lock``, unless the
+    process that held the lock before has built ``out``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(out.name + ".lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():
+            _build(source, flags, out)
+
+
 def _load(source: Path, flags, declare) -> ctypes.CDLL:
     """``source`` built with ``flags`` (once), loaded, its signatures set by
     ``declare(lib)``."""
@@ -104,7 +117,7 @@ def _load(source: Path, flags, declare) -> ctypes.CDLL:
         if lib is None:
             path = _target(source, flags)
             if not path.exists():
-                _build(source, flags, path)
+                _build_once(source, flags, path)
             lib = ctypes.CDLL(str(path))
             declare(lib)
             _libs[source] = lib

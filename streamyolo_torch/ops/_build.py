@@ -3,8 +3,12 @@
 Each source compiles once, with ``nvcc`` for ``sm_90a``, into its own shared
 library with a plain C interface under ``build/kernels/`` of the checkout,
 named by a hash of the source and the flags, and is loaded with ``ctypes``.
-All sources build in parallel (one ``nvcc`` each). There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+All sources build in parallel (one ``nvcc`` each), and each once across
+processes (data-parallel ranks, loader workers, a serving child): an
+``flock`` on ``<target>.lock`` beside the library is held while it
+compiles, and a process that finds a source locked waits and then loads the
+other's library (or, if that build failed, builds it itself). There is no
+fallback: a missing ``nvcc`` or a failed build raises.
 
 Flags: no ``--use_fast_math``; ``-fmad=false`` and IEEE division / square
 root, so that float arithmetic rounds step by step as the plain PyTorch
@@ -14,7 +18,9 @@ them).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -68,32 +74,50 @@ def _target(name: str) -> Path:
 def build_all() -> Dict[str, dict]:
     """Compile every source not built yet, all ``nvcc`` processes at once.
     Returns ``{name: {"path", "seconds", "log"}}``; ``log`` holds ptxas's
-    register / shared-memory report. Raises on any failure."""
+    register / shared-memory report, or ``"cached"`` where the library was
+    there already or another process built it (``seconds`` then counts the
+    wait). Raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
     report: Dict[str, dict] = {}
     t0 = time.perf_counter()
-    for name in SOURCES:
-        out = _target(name)
-        if out.exists():
-            report[name] = {"path": str(out), "seconds": 0.0, "log": "cached"}
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        report[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
-                        "log": log}
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    # first pass: compile what no other process holds; second: wait for the
+    # rest, locks taken in SOURCES order, and compile what is still missing
+    for blocking in (False, True):
+        with contextlib.ExitStack() as held:
+            procs = {}
+            for name in SOURCES:
+                out = _target(name)
+                if name in report:
+                    continue
+                if not out.exists():
+                    lock = held.enter_context(open(out.with_name(out.name + ".lock"), "a"))
+                    try:
+                        fcntl.flock(lock, fcntl.LOCK_EX | (0 if blocking else fcntl.LOCK_NB))
+                    except BlockingIOError:
+                        continue  # another process compiles it: wait in the second pass
+                if out.exists():
+                    report[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
+                                    "log": "cached"}
+                    continue
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+            failed = []
+            for name, (proc, tmp, out) in procs.items():
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+                    continue
+                os.replace(tmp, out)
+                report[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
+                                "log": log}
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        if len(report) == len(SOURCES):
+            break
     return report
 
 

@@ -54,7 +54,7 @@ from streamyolo_torch.utils.weights import (jax_variables_to_state_dict, load_st
                                             read_safetensors, write_safetensors)
 
 from . import _torch_aot_child as child
-from .torch_port_helpers import lift_pred_biases, load_port
+from .torch_port_helpers import lift_pred_biases, load_port, torch_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INPUT = (64, 96)
@@ -70,10 +70,8 @@ def one_thread():
     run (the suite runs in several worker processes). Not for the JAX
     comparisons: their float32 bound is met at the default thread count of
     ``tests/test_torch_stream.py``, whose oneDNN sums round differently."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -42,11 +42,15 @@ from streamyolo_torch.data import transforms as ttransforms
 from streamyolo_torch.tools import augment_check
 
 from .test_mosaic_golden import _IMG_SIZE, GOLDEN, _build_dataset
+from .torch_port_helpers import child_env, pin_threads
 
 cv2 = pytest.importorskip("cv2")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GREY = (114, 114, 114)
+
+
+one_thread = pin_threads(1)
 
 
 # ---------------------------------------------------------------- the golden
@@ -355,8 +359,7 @@ def test_without_cv2_the_samples_and_the_mosaic_training_run(tmp_path):
     absent: the no-op sink)."""
     import json
 
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
-    env["OMP_NUM_THREADS"] = "2"
+    env = child_env(2, {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"})
     proc = subprocess.run([sys.executable, "-c", CHILD, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]

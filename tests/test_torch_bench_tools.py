@@ -31,7 +31,7 @@ from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
 from streamyolo_torch.tools import bench, bench_hostpath, bench_suite, train_sweep
 from streamyolo_torch.tools.int8_conv_times import STEP_SHAPES
 from streamyolo_torch.tools.measure import count_work, meta_like, on_meta, roofline
-from .torch_port_helpers import load_port
+from .torch_port_helpers import load_port, pin_threads
 
 TINY = ["--device", "cpu", "--depth", "0.33", "--width", "0.25", "--input", "64", "96"]
 # the share of XLA's count that is not a convolution's multiply-add at this
@@ -41,15 +41,7 @@ TINY = ["--device", "cpu", "--depth", "0.33", "--width", "0.25", "--input", "64"
 XLA_NON_CONV_SHARE_MAX = 0.03
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this file's tiny tensors: the suite runs in
-    several worker processes, and threads spinning against each other cost
-    more than they parallelise here."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+one_thread = pin_threads(1)
 
 
 def _taps(size: int, k: int, stride: int) -> int:

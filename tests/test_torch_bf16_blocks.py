@@ -29,7 +29,10 @@ from streamyolo_tpu.nn import blocks as jb
 from streamyolo_torch.models.dfp_pafpn import DFPPAFPN
 from streamyolo_torch.nn import blocks as tb
 
-from .torch_port_helpers import load_port, nhwc_to_nchw, randomize_bn
+from .torch_port_helpers import load_port, nhwc_to_nchw, pin_threads, randomize_bn
+
+
+one_thread = pin_threads(1)
 
 
 def ulp_of(y):

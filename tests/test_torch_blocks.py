@@ -20,9 +20,12 @@ from streamyolo_tpu.nn import blocks as jb
 from streamyolo_torch.models.darknet import CSPDarknet, Darknet
 from streamyolo_torch.nn import blocks as tb
 
-from .torch_port_helpers import load_port, nhwc_to_nchw, randomize_bn
+from .torch_port_helpers import load_port, nhwc_to_nchw, pin_threads, randomize_bn
 
 ATOL = 1e-4
+
+
+one_thread = pin_threads(1)
 
 
 def run_parity(flax_mod, port_mod, x_nhwc, atol=ATOL):

@@ -18,10 +18,15 @@ import jax.numpy as jnp
 from streamyolo_tpu.models.heads import eval_outputs as j_eval_outputs
 from streamyolo_torch.models.heads import eval_outputs
 
+from .torch_port_helpers import pin_threads
+
 STRIDES = (8, 16, 32)
 LEVELS = ((8, 12), (4, 6), (2, 3))  # a 64x96 input
 CHANNELS = 13
 JNP_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+one_thread = pin_threads(1)
 
 
 def head_maps(dtype, seed=0):

@@ -49,7 +49,7 @@ from streamyolo_torch.tools import eval as eval_tool
 from streamyolo_torch.utils.weights import jax_train_state_to_port
 
 from ._torch_dist_child import CFG, NCLS, SCHED, SMALL, run_step
-from .torch_port_helpers import randomize_bn, write_textured_argoverse
+from .torch_port_helpers import randomize_bn, torch_threads, write_textured_argoverse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_dist_child.py")
@@ -199,9 +199,7 @@ def dp(tmp_path_factory, fake_argoverse):
         jnew, jm = jstep(jstate, batch)
         jax_out = {"state": to_port(jax.tree_util.tree_map(np.asarray, jnew)),
                    "metrics": {k: float(v) for k, v in jm.items()}}
-        n = torch.get_num_threads()
-        torch.set_num_threads(2)
-        try:
+        with torch_threads(2):
             single = run_step(str(work), 0, 1)
             exp = get_exp(CFG).merge(SMALL + ["data_dir", textured, "test_size", "(60, 96)",
                                               "data_num_workers", "0"])
@@ -210,8 +208,6 @@ def dp(tmp_path_factory, fake_argoverse):
             evaluator = exp.get_evaluator(batch_size=2)
             (ap, ap50, _), rows = evaluator.evaluate(exp.get_forward_fn(model),
                                                      return_outputs=True)
-        finally:
-            torch.set_num_threads(n)
     finally:
         ranks.wait_ok(TIMEOUT_S)
     out = {"work": work, "jax": jax_out, "single": single,

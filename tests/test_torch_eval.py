@@ -50,7 +50,8 @@ from streamyolo_torch.utils.fuse import fuse_state_dict
 from streamyolo_torch.utils.weights import jax_variables_to_state_dict
 
 from .conftest import FAKE_IMG_SIZE
-from .torch_port_helpers import lift_pred_biases, load_port, randomize_bn, write_textured_argoverse
+from .torch_port_helpers import (lift_pred_biases, load_port, pin_threads, randomize_bn,
+                                 write_textured_argoverse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEPTH, WIDTH, NCLS = 0.33, 0.25, 8
@@ -59,15 +60,7 @@ DATASETS = {"ONE": "ONE_ARGOVERSEDataset", "TWO": "TWO_ARGOVERSEDataset",
             "STILL": "STILL_ARGOVERSEDataset"}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this file's tiny tensors: the suite runs in
-    several worker processes, and threads spinning against each other cost
-    more than they parallelise here."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -27,10 +27,13 @@ from streamyolo_torch.eval import evaluators as tevaluators
 from streamyolo_torch.eval.seq_forward import support_shifts
 
 from .conftest import FAKE_H, FAKE_IMG_SIZE, FAKE_W
-from .torch_port_helpers import write_textured_argoverse
+from .torch_port_helpers import pin_threads, write_textured_argoverse
 
 KINDS = {"ONE": "ONE_ARGOVERSEDataset", "TWO": "TWO_ARGOVERSEDataset",
          "STILL": "STILL_ARGOVERSEDataset"}
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module", params=[(5, 3), (2, 6)], ids=["seqs5+3", "seqs2+6"])

@@ -50,6 +50,8 @@ from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
 from streamyolo_torch.stream import CUDAStreamDetector
 from tests.torch_png import chunk
 
+from .torch_port_helpers import child_env, pin_threads
+
 cv2 = pytest.importorskip("cv2")
 
 REPO = Path(__file__).resolve().parents[1]
@@ -66,6 +68,9 @@ class Exp(Base):
         super().__init__()
         self.width = 0.25
 """
+
+
+one_thread = pin_threads(1)
 
 
 def encode(img, **params) -> bytes:
@@ -362,7 +367,7 @@ def test_port_reads_from_disk_without_cv2(tmp_path):
         pickle.dump({"fixed": {"type": "empirical", "samples": [0.02]}}, f)
     out = tmp_path / "child"
     out.mkdir()
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env = child_env(1, {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"})
     proc = subprocess.run(
         [sys.executable, "-c", NO_CV2_CHILD, data_root, annot, str(config), weights, zoo,
          str(out)],

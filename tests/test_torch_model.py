@@ -19,10 +19,13 @@ from streamyolo_tpu.ops.resize import resize_nearest as j_resize_nearest
 from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
 from streamyolo_torch.ops.resize import resize_nearest
 
-from .torch_port_helpers import load_port, nhwc_to_nchw, randomize_bn
+from .torch_port_helpers import load_port, nhwc_to_nchw, pin_threads, randomize_bn
 
 DEPTH, WIDTH, NCLS = 0.33, 0.25, 8
 TOL = dict(atol=2e-3, rtol=1e-4)
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -28,12 +28,15 @@ from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
 from streamyolo_torch.ops.nms_cuda import nms_keep
 from streamyolo_torch.stream import CUDAStreamDetector, MultiStreamDetector
 
-from .torch_port_helpers import lift_pred_biases, load_port
+from .torch_port_helpers import lift_pred_biases, load_port, pin_threads
 
 INPUT = (64, 96)
 KW = dict(input_size=INPUT, in_scale=0.5, conf_thre=0.01, nms_thre=0.65,
           num_classes=8, pre_nms_topk=200, use_bf16=False)
 MODEL_TOL = dict(atol=2e-3, rtol=1e-4)
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -18,9 +18,12 @@ from streamyolo_tpu.ops.nms_pallas import nms_padded_pallas
 from streamyolo_torch.ops import nms as tnms
 from streamyolo_torch.ops.nms_cuda import nms_keep
 
-from .torch_port_helpers import require_cuda
+from .torch_port_helpers import pin_threads, require_cuda
 
 CLASS_OFFSET = 8192.0
+
+
+one_thread = pin_threads(1)
 
 
 def selftest_case(k, seed, ties=False):

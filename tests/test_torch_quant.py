@@ -53,7 +53,7 @@ from streamyolo_torch.stream import CUDAStreamDetector, MultiStreamDetector
 from streamyolo_torch.utils.weights import flax_path_to_torch, jax_variables_to_state_dict
 
 from .test_torch_bf16_blocks import assert_bf16_bounds, to_nhwc
-from .torch_port_helpers import lift_pred_biases, nhwc_to_nchw, randomize_bn
+from .torch_port_helpers import lift_pred_biases, nhwc_to_nchw, pin_threads, randomize_bn
 
 INPUT = (32, 48)
 BOX_TOL, SCORE_TOL = 1e-4, 1e-5
@@ -61,14 +61,7 @@ KW = dict(input_size=INPUT, in_scale=0.5, conf_thre=0.05, nms_thre=0.5,
           num_classes=8, pre_nms_topk=16, use_bf16=False)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this file's tiny tensors (the suite runs in
-    several worker processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+one_thread = pin_threads(1)
 
 
 def port_model():

@@ -40,7 +40,7 @@ from streamyolo_torch.stream import pairing as tpairing
 from streamyolo_torch.stream import runtime_dist as trd
 from streamyolo_torch.tools import sap_rehearsal as ttool
 
-from .torch_port_helpers import lift_pred_biases, load_port
+from .torch_port_helpers import lift_pred_biases, load_port, pin_threads
 
 pytest.importorskip("cv2")
 
@@ -51,6 +51,9 @@ RAW = (128, 192)
 KW = dict(input_size=(64, 96), in_scale=0.5, conf_thre=0.01, nms_thre=0.65,
           num_classes=8, pre_nms_topk=200, use_bf16=False)
 SAMPLES = [0.02, 0.05, 0.07]  # draws above 33 ms make the run skip frames
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

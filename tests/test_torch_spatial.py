@@ -54,7 +54,7 @@ from streamyolo_torch.parallel.spatial import Rows, replicated, resize_rows, row
 from streamyolo_torch.quant import calibrate_activations, quantize_state_dict
 from streamyolo_torch.stream import CUDAStreamDetector
 
-from .torch_port_helpers import lift_pred_biases, load_port
+from .torch_port_helpers import lift_pred_biases, load_port, pin_threads
 
 KW = dict(in_scale=0.5, conf_thre=0.01, nms_thre=0.65, num_classes=8, pre_nms_topk=200,
           use_bf16=False)
@@ -63,15 +63,10 @@ FRAMES = 3  # the star frame, then two steady frames carrying the buffer
 BOX_ATOL, SCORE_ATOL = 1e-4, 1e-5  # the JAX package's sharded-vs-unsharded bound
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the sharded steps run many small ops, and when
-    the test workers share the cores each op's thread-pool hand-off costs
-    more than the op (the file ran ~5x slower beside busy cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+# One intra-op thread: the sharded steps run many small ops, and when
+# the test workers share the cores each op's thread-pool hand-off costs
+# more than the op (the file ran ~5x slower beside busy cores).
+one_thread = pin_threads(1)
 
 
 def cpu_mesh(n: int):

@@ -36,7 +36,7 @@ from streamyolo_torch.ops.nms_cuda import nms_keep
 from streamyolo_torch.ops.preproc import downsample2x
 from streamyolo_torch.stream import CUDAStreamDetector
 
-from .torch_port_helpers import lift_pred_biases, load_port
+from .torch_port_helpers import lift_pred_biases, load_port, pin_threads
 
 pytest.importorskip("cv2")
 
@@ -44,6 +44,9 @@ REPO = Path(__file__).resolve().parents[1]
 INPUT = (64, 96)
 KW = dict(input_size=INPUT, in_scale=0.5, conf_thre=0.01, nms_thre=0.65,
           num_classes=8, pre_nms_topk=200, use_bf16=False)
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -96,17 +99,12 @@ def test_fp32_within_float64_anchor(models):
     for i, x in enumerate(frames):
         y, buf = apply(variables, x, buf, jnp.array([i == 0]))
         preds["jax"].append(np.asarray(y[0], np.float64))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # tiny ops: the suite's workers would contend for the cores
-    try:
-        for name, dtype in (("port", torch.float32), ("port64", torch.float64)):
-            model, buf = copy.deepcopy(port).to(dtype), None
-            with torch.inference_mode():
-                for x in frames:
-                    y, buf = model(torch.from_numpy(x).to(dtype), buffer=buf, mode="on_pipe")
-                    preds[name].append(y[0].double().numpy())
-    finally:
-        torch.set_num_threads(threads)
+    for name, dtype in (("port", torch.float32), ("port64", torch.float64)):
+        model, buf = copy.deepcopy(port).to(dtype), None
+        with torch.inference_mode():
+            for x in frames:
+                y, buf = model(torch.from_numpy(x).to(dtype), buffer=buf, mode="on_pipe")
+                preds[name].append(y[0].double().numpy())
     preds = {k: np.stack(v) for k, v in preds.items()}
     ref = preds["port64"]
     keep = ref[..., 4] * ref[..., 5:].max(-1) > KW["conf_thre"]

@@ -38,7 +38,7 @@ from streamyolo_torch.tools import stream_det as t_stream_det
 from streamyolo_torch.tools import streaming_eval as t_streaming_eval
 from streamyolo_torch.utils.weights import jax_variables_to_state_dict
 
-from .torch_port_helpers import lift_pred_biases
+from .torch_port_helpers import child_env, lift_pred_biases, pin_threads
 
 pytest.importorskip("cv2")
 
@@ -46,6 +46,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 CONFIG = "cfgs/s_s50_onex_dfp_tal_flip.py"
 RAW = (128, 192)
+
+one_thread = pin_threads(1)
 
 
 def run_jax_tool(name, argv):
@@ -200,7 +202,7 @@ def test_streamyolo_sh_runs_both_stages(runs, tmp_path):
     """The two stages of the shell pipeline; the extra arguments reach
     ``stream_det`` (a simulated clock here, so that the CPU's speed does not
     decide how many frames land before the horizon)."""
-    env = dict(os.environ, DATA_ROOT=runs["data_root"], ANNOT_PATH=runs["annot"])
+    env = child_env(1, dict(os.environ, DATA_ROOT=runs["data_root"], ANNOT_PATH=runs["annot"]))
     out = tmp_path / "sh"
     proc = subprocess.run(
         ["bash", "streamyolo_torch/tools/streamyolo.sh", CONFIG, runs["weights"], str(out),
@@ -221,18 +223,7 @@ def test_port_cli_without_a_card_raises(runs, tool, tmp_path):
         tool.main([*runs["common"], "--out-dir", str(tmp_path)])
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for a test of small bf16 steps (the suite runs in
-    several worker processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_stream_det_refuses_aot_dir_and_jax_checkpoints(runs, tmp_path, monkeypatch, caplog,
-                                                        one_thread):
+def test_stream_det_refuses_aot_dir_and_jax_checkpoints(runs, tmp_path, monkeypatch, caplog):
     """``--aot-dir`` (bf16 modules, ``--sim-zoo``): a directory without this
     configuration's graphs is a logged miss and the run is eager; after
     ``precompile --serve DIR --streams 2 --device cpu`` the run serves from

@@ -35,7 +35,10 @@ from streamyolo_torch.stream import forecast as tforecast
 from streamyolo_torch.stream import schedule_sim as tsched
 from streamyolo_torch.stream import track as ttrack
 
-from .torch_port_helpers import make_failing_detector, make_toy_detector
+from .torch_port_helpers import make_failing_detector, make_toy_detector, pin_threads
+
+
+one_thread = pin_threads(1)
 
 
 def random_boxes(rng, n, lo=0.0, hi=300.0):

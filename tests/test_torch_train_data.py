@@ -31,11 +31,14 @@ from streamyolo_torch.data.cv2_ops import resize_u8
 from streamyolo_torch.exp import get_exp
 
 from .conftest import FAKE_IMG_SIZE
-from .torch_port_helpers import write_textured_argoverse
+from .torch_port_helpers import pin_threads, write_textured_argoverse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = {"ONE": "s_s50_onex_dfp_tal_flip", "TWO": "l_s50_twox_dfp_tal_flip",
         "STILL": "l_s50_still_dfp_flip"}
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -28,9 +28,14 @@ from streamyolo_torch.models import assign as tassign
 from streamyolo_torch.models import losses as tlosses
 from streamyolo_torch.ops import boxes as tboxes
 
+from .torch_port_helpers import pin_threads
+
 NCLS = 8
 HW = ((8, 12), (4, 6), (2, 3))  # a 64x96 input at strides 8, 16, 32
 STRIDES = (8, 16, 32)
+
+
+one_thread = pin_threads(1)
 
 
 def random_boxes(rng, n, img=(64, 96), lo=4, hi=40):

@@ -50,18 +50,15 @@ from streamyolo_torch.utils.weights import (
     jax_variables_to_state_dict,
 )
 
+from .torch_port_helpers import pin_threads
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "cfgs", "s_s50_onex_dfp_tal_flip.py")
 NCLS = 8
 SMALL = ["depth", "0.33", "width", "0.25"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+few_threads = pin_threads(2)
 
 
 @pytest.fixture(scope="module")

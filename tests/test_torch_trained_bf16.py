@@ -57,12 +57,11 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from streamyolo_tpu.data import dbcode as jdbcode
 
 from . import torch_trained_fixture as fixture
-from .torch_port_helpers import chip_smoke, matched_rows
+from .torch_port_helpers import chip_smoke, matched_rows, pin_threads
 
 SMOKE = chip_smoke()
 # the JAX bf16 run's own noise across XLA thread pools (meta.json jax_thread_noise)
@@ -70,13 +69,7 @@ NOISE = {"box_px": 2.6, "score": 0.0096}
 C5_BOUNDS = {"box_px": 2.5e-4, "score": 1e-5}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs in several worker processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

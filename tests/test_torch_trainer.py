@@ -40,7 +40,7 @@ from streamyolo_torch.utils import checkpoint
 from streamyolo_torch.utils.weights import jax_variables_to_state_dict
 
 from .conftest import FAKE_H, FAKE_W
-from .torch_port_helpers import lift_pred_biases, write_textured_argoverse
+from .torch_port_helpers import lift_pred_biases, torch_threads, write_textured_argoverse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "cfgs", "s_s50_onex_dfp_tal_flip.py")
@@ -57,16 +57,14 @@ def few_threads_no_tensorboard():
     optional writer; importing it loads TensorFlow where that is installed)."""
     import sys
 
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
     saved = sys.modules.get("torch.utils.tensorboard")
     sys.modules["torch.utils.tensorboard"] = None
-    yield
+    with torch_threads(2):
+        yield
     if saved is None:
         sys.modules.pop("torch.utils.tensorboard", None)
     else:
         sys.modules["torch.utils.tensorboard"] = saved
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

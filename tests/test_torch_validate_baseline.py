@@ -51,7 +51,7 @@ from streamyolo_torch.tools import eval as tool
 from streamyolo_torch.tools import validate_baseline as vb
 from streamyolo_torch.utils.weights import jax_variables_to_state_dict
 
-from .torch_port_helpers import lift_pred_biases, write_textured_argoverse
+from .torch_port_helpers import lift_pred_biases, pin_threads, write_textured_argoverse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "cfgs", "s_s50_onex_dfp_tal_flip.py")
@@ -62,12 +62,7 @@ JAX_OPTS = OPTS + ["packed", "False"]
 INT8_AP_TOL = 0.5
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+one_thread = pin_threads(1)
 
 
 JAX_CHILD = """

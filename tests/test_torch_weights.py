@@ -17,7 +17,10 @@ from streamyolo_torch.utils.weights import (
     load_state_dict_file,
 )
 
-from .torch_port_helpers import randomize_bn
+from .torch_port_helpers import pin_threads, randomize_bn
+
+
+one_thread = pin_threads(1)
 
 
 @pytest.fixture(scope="module")

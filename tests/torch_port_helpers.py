@@ -1,10 +1,14 @@
 """Shared pieces of the ``test_torch_*.py`` parity tests: JAX variables with
 non-trivial BatchNorm statistics, their conversion into the PyTorch port,
 the textured Argoverse-HD fixture of the eval tests, the box matcher of two
-detectors' rows, and the guard for tests that need a CUDA card."""
+detectors' rows, the guard for tests that need a CUDA card, and the pin of
+torch's intra-op threads (the suite runs in several worker processes, whose
+thread pools would otherwise each take every core)."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 from pathlib import Path
 
@@ -13,6 +17,41 @@ import pytest
 import torch
 
 from streamyolo_torch.utils.weights import jax_variables_to_state_dict
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """``torch.set_num_threads(n)`` inside the block, the count before it
+    after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def pin_threads(n: int = 1):
+    """A module-scoped autouse fixture that runs the module's tests with
+    ``n`` intra-op threads; bind it to a name in the test module
+    (``threads = pin_threads(1)``). Tiny tensors: threads spinning against
+    the other workers' cost more than they parallelise."""
+
+    @pytest.fixture(scope="module", autouse=True)
+    def pinned():
+        with torch_threads(n):
+            yield n
+
+    return pinned
+
+
+def child_env(n: int, env=None) -> dict:
+    """``env`` (default ``os.environ``) for a child process whose torch is
+    to run ``n`` intra-op threads, as a pinned parent does: a child inherits
+    no ``torch.set_num_threads``."""
+    env = dict(os.environ if env is None else env)
+    env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = str(n)
+    return env
 
 
 def randomize_bn(variables, seed: int = 0):
