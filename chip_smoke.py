@@ -84,7 +84,8 @@ port's measuring tools (``streamyolo_torch/tools/bench.py``, ``bench_suite.py``,
 samples, checks each JSON line (its keys, the card, every time finite and
 above 0, ``0 < mfu <= 1.05``), holds the chain ``bench.py`` times to a
 detector fed call by call, and the full-width work count to the step's 128
-conv calls. Each phase prints
+conv calls, runs ``bench_suite train_s --remat`` and holds one rematerialised
+train step of StreamYOLO-s to the plain step (``remat_check``). Each phase prints
 one JSON line; the line before the last lists the kernels, with their
 launches on every path (from graphs: launches captured per graph x
 replays), and the last line is ``{"ok": true, "device":
@@ -3841,6 +3842,31 @@ def bench_check(name: str, line: dict, keys, kind: str, smi: str, required_mfu) 
     return {"times_checked": len(times), "mfu": {p: v for p, v in mfus.items() if v is not None}}
 
 
+def remat_check() -> dict:
+    """``streamyolo_torch/tools/remat_steps.py`` at batch
+    ``BENCH_TRAIN_BATCH``: two plain steps and one rematerialised step of
+    StreamYOLO-s at 600x960 from one seeded state, bf16 autocast, cuDNN's
+    autotuner on, at a step where the LR is not 0. The remat step's running
+    statistics and ``num_batches_tracked`` equal the plain step's bit for
+    bit, and its metrics, weights, gradients, momentum and EMA part from
+    the first plain step's by at most what the second plain step's do (not
+    at all where those are equal). Returns the line's remat entry and each
+    step's peak memory."""
+    from streamyolo_torch.tools import remat_steps
+
+    line = tool_line(remat_steps, ["--batch", str(BENCH_TRAIN_BATCH)])
+    remat = line["steps"]["remat"]
+    check(line["plain"]["lr"] > 0, "remat: the steps ran at LR 0")
+    check(not remat["stats_differ"],
+          f"remat: running statistics differ from the plain step's: {remat['stats_differ'][:5]}")
+    check(remat["above_plain_gap"] == 0,
+          f"remat: {remat['above_plain_gap']} of {line['tensors']} tensors part from the plain "
+          f"step by more than two plain steps do: {remat['above_plain_gap_first']}")
+    return {"tensors": line["tensors"], "remat": remat,
+            "plain_again_differ": line["steps"]["plain_again"]["differ"],
+            "plain_peak_memory_gb": line["plain"]["peak_memory_gb"]}
+
+
 def phase_bench(smi: str) -> dict:
     """The port's measuring tools (``streamyolo_torch/tools/bench.py``,
     ``bench_suite.py``, ``train_sweep.py``, ``bench_hostpath.py``), each run
@@ -3882,16 +3908,24 @@ def phase_bench(smi: str) -> dict:
     check(lines["bench"]["graphs"]["aot_loaded"], "bench: the graph detector serves eagerly")
     cell_keys = ("ms_per_step", "tflops", "gbytes", "mfu", "hbm_share")
     suite_steps = ["--steps", str(BENCH_STEPS)]
+    remat_s = ["--remat", "--batch", str(BENCH_TRAIN_BATCH)]
     for which, extra in (("all", []), ("stream_int8", []),
-                         ("stream_sweep", ["--batches", BENCH_SWEEP]), ("train_parts", [])):
-        run(f"bench_suite {which}", bench_suite, [which] + few + suite_steps + extra,
-            ("device",), ())
-        cells = {k: v for k, v in lines[f"bench_suite {which}"].items()
+                         ("stream_sweep", ["--batches", BENCH_SWEEP]), ("train_parts", []),
+                         ("train_s", remat_s)):
+        label = f"bench_suite {which}" + (" --remat" if "--remat" in extra else "")
+        run(label, bench_suite, [which] + few + suite_steps + extra, ("device",), ())
+        cells = {k: v for k, v in lines[label].items()
                  if k != "device" and not k.startswith("capacity_")}
         check(bool(cells) and all(all(k in v for k in cell_keys) for v in cells.values()),
-              f"bench_suite {which}: a cell lacks one of {cell_keys}")
+              f"{label}: a cell lacks one of {cell_keys}")
         check(all(v["mfu"] is not None for v in cells.values() if v["tflops"]),
-              f"bench_suite {which}: a cell with operations has no mfu")
+              f"{label}: a cell with operations has no mfu")
+    check(list(lines["bench_suite train_s --remat"]) == [
+        "device", f"train_{bench.size_tag(0.33, 0.5)}_b{BENCH_TRAIN_BATCH}_remat"],
+        "bench_suite train_s --remat: not the one _remat cell")
+    t0 = time.perf_counter()
+    remat = remat_check()
+    seconds["remat_check"] = time.perf_counter() - t0
     run("train_sweep", train_sweep, [str(BENCH_TRAIN_BATCH), "--samples", str(BENCH_SAMPLES),
                                      "--chain", "2"],
         ("model", "device", "points"), ("points[0].mfu",))
@@ -3952,7 +3986,7 @@ def phase_bench(smi: str) -> dict:
          chain_kept=int((rows[:, 7] > 0.5).sum()),
          step_work={"base_conv_calls": len(blocks), "distinct_shapes": len(counts),
                     "tflops": work["flops"] / 1e12, "gbytes": work["bytes"] / 1e9},
-         checked=checked, seconds=seconds, launches=launches, lines=lines,
+         remat_check=remat, checked=checked, seconds=seconds, launches=launches, lines=lines,
          elapsed_phase_s=time.perf_counter() - t_phase)
     return launches
 

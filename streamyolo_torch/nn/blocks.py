@@ -22,11 +22,15 @@ moves the running variance by the *biased* batch variance, as flax does;
 ``torch.nn.BatchNorm2d`` would use the unbiased one, n / (n - 1) larger.
 Under a process group of more than one rank, training BatchNorm takes its
 statistics over the global batch (``parallel/``), as the JAX package's
-BatchNorm does under its data mesh.
+BatchNorm does under its data mesh. Inside ``recomputing()`` (the forward a
+rematerialised train step re-runs in its backward) it normalises as before
+and moves neither its running statistics nor its count.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
@@ -38,6 +42,29 @@ from streamyolo_torch.parallel.multihost import all_reduce_sum_, get_rank, get_w
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The forward that a rematerialised train step re-runs for its backward
+    (``train/step.py``'s ``remat``): training ``BatchNorm2d`` calls in this
+    thread normalise by the batch statistics, as the first pass did, and
+    leave the running statistics and ``num_batches_tracked`` alone, so a
+    rematerialised step moves them once, as ``jax.checkpoint`` returns the
+    first pass's ``batch_stats``."""
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
+def is_recomputing() -> bool:
+    """Whether this thread runs inside ``recomputing()``."""
+    return getattr(_recompute, "on", False)
 
 
 def get_activation(name: str = "silu") -> nn.Module:
@@ -124,7 +151,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     Under a process group of more than one rank, a training call takes the
     statistics over the global batch (``_GlobalBatchNorm``) and the running
     statistics move by them, with the global ``n``; eval mode and a world
-    of 1 take the path above."""
+    of 1 take the path above. Inside ``recomputing()`` both paths
+    normalise as they do outside it (the global one all-reduces its
+    statistics again) and the running statistics and count stay as they
+    are."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -141,6 +171,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if world > 1:
             y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, world,
                                                   get_rank())
+            if is_recomputing():
+                return y
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
@@ -149,6 +181,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         # momentum 1: the scratch buffers become this batch's statistics
         y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight, self.bias,
                          True, 1.0, self.eps)
+        if is_recomputing():
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_mean.mul_(1.0 - m).add_(self._batch_mean, alpha=m)

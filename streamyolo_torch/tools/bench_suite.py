@@ -3,7 +3,8 @@
 
     python -m streamyolo_torch.tools.bench_suite {stream_fp32,stream_int8,stream_sweep,serve8,
         eval_fwd,eval_dedup,train_s,train_parts,all} [--batch N] [--batches 1,2,4,8,16,32]
-        [--samples 8] [--steps N] [--int8] [--depth D --width W] [--input H W] [--device cpu]
+        [--samples 8] [--steps N] [--int8] [--remat] [--depth D --width W] [--input H W]
+        [--device cpu]
 
 ``tools/bench.py`` is the headline (one streaming step); this suite measures
 every other row the same way: each sample is ``--steps`` calls and one
@@ -31,6 +32,13 @@ median sits beside it. Cells:
 * ``train_parts``: the same step's forward, SimOTA assignment + loss,
   backward, SGD and EMA, each timed with CUDA events around it (as
   ``profile_train_step.py``).
+* ``--remat`` (``train_s``, ``train_parts``): the rematerialised step
+  (``make_train_step(remat=True)``), cells named with the JAX tool's
+  ``_remat`` suffix. Its backward runs the forward again before its
+  gradients, so ``train_parts``' ``backward`` holds the recomputed forward,
+  and the work counted is the work the card executes: the backward 3x the
+  forward's convolutions, the step 4x (what the JAX tool's XLA cost
+  analysis counts of its ``jax.checkpoint`` step).
 * ``all``: ``stream_fp32``, ``serve8``, ``eval_fwd``, ``eval_dedup``,
   ``train_s``.
 
@@ -38,18 +46,17 @@ Each cell reports ``ms_per_step`` (a batch of the eval, a train step),
 ``frames_per_sec`` or ``imgs_per_sec``, ``tflops``, ``gbytes``, ``mfu`` and
 ``hbm_share`` (``measure.py``: the convolutions counted from the model's
 shapes against the card's data-sheet peaks; the train step 3x its forward,
-SGD and EMA by the bytes of the tensors they read and write). All cells go
-in one JSON dict on the last line, with ``device`` (the card's name and
-``nvidia-smi`` power limit). ``--depth`` / ``--width`` set the model of
+4x under ``--remat``, SGD and EMA by the bytes of the tensors they read and
+write). All cells go in one JSON dict on the last line, with ``device``
+(the card's name and ``nvidia-smi`` power limit). ``--depth`` / ``--width`` set the model of
 every cell (default StreamYOLO-l, and -s for the train cells); ``--input``
 the frame size.
 
-The JAX tool's ``--no-packed`` and ``--remat`` have no counterpart: the
-phase-packed layouts are TPU lane layouts the port does not have (it runs
-the raw layout, the JAX tool's ``_raw`` cells), and the port's train step
-has no rematerialisation. Runs on ``cuda``; raises without a card unless
-``--device cpu``, where the same cells run at the size given and every
-time, rate and share is null.
+The JAX tool's ``--no-packed`` has no counterpart: the phase-packed
+layouts are TPU lane layouts the port does not have (it runs the raw
+layout, the JAX tool's ``_raw`` cells). Runs on ``cuda``; raises without a
+card unless ``--device cpu``, where the same cells run at the size given
+and every time, rate and share is null.
 """
 
 from __future__ import annotations
@@ -229,31 +236,40 @@ def bench_eval_dedup(args, device: torch.device) -> dict:
             cell(stats, work, device, batch, "imgs_per_sec")}
 
 
+def remat_tag(args) -> str:
+    return "_remat" if args.remat else ""
+
+
 def bench_train(args, device: torch.device) -> dict:
     """``train_sweep.py``'s full train step at ``--batch`` (16)."""
     depth, width = args.depth or 0.33, args.width or 0.5
     batch = args.batch or 16
     point = train_sweep.measure(batch, device, depth, width, tuple(args.input), args.samples,
-                                args.steps or TRAIN_STEPS)
-    return {f"train_{bench.size_tag(depth, width)}_b{batch}": point}
+                                args.steps or TRAIN_STEPS, remat=args.remat)
+    return {f"train_{bench.size_tag(depth, width)}_b{batch}{remat_tag(args)}": point}
 
 
 def bench_train_parts(args, device: torch.device) -> dict:
-    """The train step cut in five, each part between two CUDA events:
-    forward (train mode, bf16 autocast), SimOTA assignment + loss, backward,
-    SGD, EMA. Work: the forward's convolutions, 2x them in the backward;
-    SGD reads the weight, gradient and momentum and writes the weight and
-    momentum (5x the parameters' bytes), the EMA reads both copies and
-    writes one (3x its tensors' bytes); the assignment is not counted."""
+    """The train step cut in five, each part between two CUDA events, the
+    step's own ``forward`` and ``backward``: forward (train mode, bf16
+    autocast; under ``--remat`` the first pass, without autograd), SimOTA
+    assignment + loss, backward (under ``--remat`` with the re-run
+    forward), SGD, EMA. Work: the forward's convolutions, 2x them in the
+    backward (3x under ``--remat``); SGD reads the weight, gradient and
+    momentum and writes the weight and momentum (5x the parameters' bytes),
+    the EMA reads both copies and writes one (3x its tensors' bytes); the
+    assignment is not counted."""
     from streamyolo_torch.models.losses import streamyolo_losses
 
     depth, width = args.depth or 0.33, args.width or 0.5
     batch = args.batch or 16
-    exp, _, state, data = train_sweep.train_setup(batch, device, depth, width, tuple(args.input))
+    exp, train_step, state, data = train_sweep.train_setup(batch, device, depth, width,
+                                                           tuple(args.input), args.remat)
     model = state.model
     fwd = train_sweep.forward_work(model, data["images"])
     ema = [v for v in state.ema.state.values() if v.is_floating_point()]
-    works = {"forward": fwd, "assign_loss": None, "backward": scale_work(fwd, 2),
+    works = {"forward": fwd, "assign_loss": None,
+             "backward": scale_work(fwd, 3 if args.remat else 2),
              "sgd": {"flops": 0, "int8_ops": 0, "ops_by_format": {},
                      "bytes": 5 * tensor_bytes(*model.parameters())},
              "ema": {"flops": 0, "int8_ops": 0, "ops_by_format": {},
@@ -265,8 +281,7 @@ def bench_train_parts(args, device: torch.device) -> dict:
         events = [torch.cuda.Event(enable_timing=True) for _ in range(6)] if cuda else []
         mark = (lambda i: events[i].record()) if events else (lambda i: None)
         mark(0)
-        with torch.autocast(device.type, dtype=torch.bfloat16):
-            outputs = model(data["images"], mode="off_pipe")
+        outputs = train_step.forward(model, data["images"])
         mark(1)
         losses = streamyolo_losses(outputs, data["labels"], data["support_labels"],
                                    exp.num_classes, gamma=exp.tal_gamma,
@@ -274,7 +289,7 @@ def bench_train_parts(args, device: torch.device) -> dict:
                                    ignore_value=exp.tal_ignore_value)
         mark(2)
         state.optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
+        train_step.backward(model, data["images"], outputs, losses["total_loss"])
         mark(3)
         state.optimizer.step()
         mark(4)
@@ -296,7 +311,7 @@ def bench_train_parts(args, device: torch.device) -> dict:
         for _ in range(args.samples * (args.steps or TRAIN_STEPS)):
             step(True)
     tag = bench.size_tag(depth, width)
-    return {f"train_parts_{tag}_{p}_b{batch}":
+    return {f"train_parts_{tag}_{p}_b{batch}{remat_tag(args)}":
             cell(stats_ms(times[p] or None), works[p], device, batch, "imgs_per_sec")
             for p in TRAIN_PARTS}
 
@@ -314,6 +329,8 @@ def make_parser():
                    help=f"calls per sample (default {STREAM_STEPS}; train {TRAIN_STEPS})")
     p.add_argument("--int8", action="store_true",
                    help="eval_fwd, stream_sweep: the int8 PTQ path")
+    p.add_argument("--remat", action="store_true",
+                   help="train_s, train_parts: the rematerialised train step")
     p.add_argument("--depth", type=float, default=None,
                    help="model depth (default 1.0; train cells 0.33)")
     p.add_argument("--width", type=float, default=None,

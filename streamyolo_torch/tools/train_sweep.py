@@ -17,10 +17,13 @@ the forward's convolutions (``measure.py::count_work`` on a bf16 meta copy
 in train mode; the backward's input and weight gradients are each a
 convolution of the forward's size) priced by ``measure.py::roofline``.
 
-The JAX tool's ``--remat`` has no counterpart: the port's train step has no
-rematerialisation. Prints ONE JSON line. Runs on ``cuda``; raises without a
-card unless ``--device cpu``, where the same steps run at the size given
-and every time, rate, share and memory figure is null.
+``train_setup`` and ``measure`` take ``remat`` (the rematerialised step,
+``make_train_step(remat=True)``, whose backward runs the forward again: 4x
+the forward's convolutions); ``bench_suite.py train_s --remat`` reaches it,
+and the JAX tool's ``--remat`` flag has no counterpart on this CLI. Prints
+ONE JSON line. Runs on ``cuda``; raises without a card unless ``--device
+cpu``, where the same steps run at the size given and every time, rate,
+share and memory figure is null.
 """
 
 from __future__ import annotations
@@ -76,11 +79,11 @@ def cudnn_autotuned():
 
 
 def train_setup(batch: int, device: torch.device, depth: Optional[float] = None,
-                width: Optional[float] = None, size=INPUT):
+                width: Optional[float] = None, size=INPUT, remat: bool = False):
     """(exp, train step, state, batch) of StreamYOLO-s (or ``depth`` /
     ``width``): float32 master weights from the config's seed, SGD + EMA,
     ``tools/train_sweep.py``'s schedule (yoloxwarmcos, lr 0.001 / 64 per
-    image), bf16 autocast."""
+    image), bf16 autocast, the forward rematerialised if ``remat``."""
     from streamyolo_torch.train import build_lr_schedule, create_train_state, make_train_step
 
     exp = seeded_exp(CONFIG, depth, width)
@@ -91,7 +94,7 @@ def train_setup(batch: int, device: torch.device, depth: Optional[float] = None,
                            max_epoch=15, warmup_epochs=1, no_aug_epochs=15)
     step = make_train_step(exp.num_classes, lr, gamma=exp.tal_gamma,
                            ignore_thr=exp.tal_ignore_thr, ignore_value=exp.tal_ignore_value,
-                           fp16=True)
+                           fp16=True, remat=remat)
     return exp, step, state, synthetic_batch(batch, size, device)
 
 
@@ -104,10 +107,10 @@ def forward_work(model: torch.nn.Module, images: torch.Tensor) -> dict:
 
 
 def measure(batch: int, device: torch.device, depth=None, width=None, size=INPUT,
-            samples: int = 6, chain: int = 4) -> dict:
+            samples: int = 6, chain: int = 4, remat: bool = False) -> dict:
     """One point of the sweep (module docstring)."""
-    _, step, state, data = train_setup(batch, device, depth, width, size)
-    work = scale_work(forward_work(state.model, data["images"]), 3)
+    _, step, state, data = train_setup(batch, device, depth, width, size, remat)
+    work = scale_work(forward_work(state.model, data["images"]), 4 if remat else 3)
     cuda = device.type == "cuda"
     with cudnn_autotuned():
         for _ in range(2):  # the autotuner's first choices
@@ -118,8 +121,9 @@ def measure(batch: int, device: torch.device, depth=None, width=None, size=INPUT
         times = time_samples(lambda: step(state, data), samples, chain, device)
     s = stats_ms(times)
     ms = s["min_ms"]
-    out = {"batch": batch, "ms_per_step": ms, "median_ms_per_step": s["median_ms"],
-           "max_ms_per_step": s["max_ms"], "imgs_per_sec": batch * 1e3 / ms if ms else None,
+    out = {"batch": batch, "remat": remat, "ms_per_step": ms,
+           "median_ms_per_step": s["median_ms"], "max_ms_per_step": s["max_ms"],
+           "imgs_per_sec": batch * 1e3 / ms if ms else None,
            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
            "samples": samples, "steps_per_sample": chain,
            **roofline(work, ms / 1e3 if ms else None, device)}

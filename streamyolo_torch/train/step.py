@@ -26,9 +26,27 @@ statistics, momentum and EMA. The metrics are the global ones (one
 all-reduce of the packed shares). With no group, or a world of 1, none of
 this runs.
 
+``remat=True`` rematerialises the forward, as the JAX step's ``remat``
+does with ``jax.checkpoint``: the model's ``off_pipe`` forward, inside the
+autocast region, is one region that keeps no activation (SimOTA and the
+loss stay outside it). Its first pass runs without autograd and hands the
+loss its maps as leaves; the backward takes the loss's gradient as far as
+those maps, runs the forward again with autograd under the same autocast,
+and back-propagates the maps' gradients through it. The re-run runs in
+``nn/blocks.py::recomputing()``, so BatchNorm normalises by the same batch
+statistics and moves its running statistics and count once per step
+(under a process group the re-run all-reduces its statistics again, on
+every rank in the same order). The step's results are those of the plain
+step, bit for bit. The re-run runs in the calling thread, not inside the
+autograd engine as ``torch.utils.checkpoint``'s does: cuDNN keeps its
+chosen plans per thread, and in the engine's device thread a convolution
+of the re-run may take another plan than its first pass and round
+otherwise (``PERF.md``, the card's runs of the rematerialised step). Like
+the JAX trainer, the port's trainer and its CLI never set it; ``bench_suite
+--remat`` measures it.
+
 Nothing synchronises with the host: the metrics are 0-d tensors on the
-device (and the float ``lr``). The JAX step's ``remat`` option is left
-out: its trainer never sets it.
+device (and the float ``lr``).
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ import torch
 from torch import nn
 
 from streamyolo_torch.models.losses import streamyolo_losses
+from streamyolo_torch.nn.blocks import recomputing
 from streamyolo_torch.parallel.multihost import (
     all_reduce_grads,
     all_reduce_sum_,
@@ -114,29 +133,61 @@ def load_carried_state(state: TrainState, carried: Dict) -> None:
 def make_train_step(num_classes: int, lr_schedule: Callable[[int], float],
                     strides=(8, 16, 32), gamma: float = 1.0, ignore_thr: float = 0.5,
                     ignore_value: float = 1.5, use_l1: bool = True, use_tal: bool = True,
-                    fp16: bool = False):
+                    fp16: bool = False, remat: bool = False):
     """``train_step(state, batch) -> metrics``. The batch: ``images``
     [B, H, W, 6] (current ++ support, uint8 or float, on the model's device),
     ``labels`` and ``support_labels`` [B, M, 5] (cls, cx, cy, w, h),
-    zero-padded."""
+    zero-padded. ``remat``: rematerialise the forward (module docstring).
 
-    def loss_fn(model: nn.Module, batch) -> Dict[str, torch.Tensor]:
-        images = batch["images"]
-        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=fp16):
+    ``loss_fn(model, batch)``: the losses of the plain forward, whose
+    gradient reaches the parameters under ``remat`` too. The step's parts,
+    for tools that time them: ``forward(model, images)`` (the maps; under
+    ``remat`` the first pass, leaves without a graph) and
+    ``backward(model, images, outputs, loss)`` (the gradient into the
+    parameters; under ``remat`` with the re-run)."""
+
+    def autocast(images: torch.Tensor):
+        return torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=fp16)
+
+    def plain_forward(model: nn.Module, images: torch.Tensor):
+        with autocast(images):
+            return model(images, mode="off_pipe")
+
+    def forward(model: nn.Module, images: torch.Tensor):
+        if not remat:
+            return plain_forward(model, images)
+        with autocast(images), torch.no_grad():
             outputs = model(images, mode="off_pipe")
+        return [o.detach().requires_grad_() for o in outputs]
+
+    def backward(model: nn.Module, images: torch.Tensor, outputs, loss: torch.Tensor):
+        if not remat:
+            loss.backward()
+            return
+        grads = torch.autograd.grad(loss, outputs)
+        with autocast(images), recomputing():
+            again = model(images, mode="off_pipe")
+        torch.autograd.backward(again, grads)
+
+    def losses_of(outputs, batch) -> Dict[str, torch.Tensor]:
         return streamyolo_losses(
             outputs, batch["labels"], batch.get("support_labels") if use_tal else None,
             num_classes=num_classes, strides=strides, gamma=gamma, ignore_thr=ignore_thr,
             ignore_value=ignore_value, use_l1=use_l1, use_tal=use_tal)
+
+    def loss_fn(model: nn.Module, batch) -> Dict[str, torch.Tensor]:
+        return losses_of(plain_forward(model, batch["images"]), batch)
 
     def train_step(state: TrainState, batch) -> Dict[str, Optional[torch.Tensor]]:
         state.model.train()
         lr = lr_schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
-        losses = loss_fn(state.model, batch)
+        images = batch["images"]
+        outputs = forward(state.model, images)
+        losses = losses_of(outputs, batch)
         state.optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
+        backward(state.model, images, outputs, losses["total_loss"])
         metrics = {k: v.detach() for k, v in losses.items()}
         if get_world_size() > 1:
             all_reduce_grads(state.model.parameters())
@@ -149,5 +200,7 @@ def make_train_step(num_classes: int, lr_schedule: Callable[[int], float],
         metrics["lr"] = lr
         return metrics
 
+    train_step.forward = forward
     train_step.loss_fn = loss_fn
+    train_step.backward = backward
     return train_step

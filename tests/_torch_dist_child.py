@@ -11,7 +11,8 @@ Imports torch and the port, never JAX.
 inputs the parent wrote to WORKDIR: BatchNorm2d in float32 and float64
 on the rank's slice of ``bn.npz`` (forward, backward of ``sum(y * dy)``, the weight / bias
 gradients summed over the ranks), one train step from ``carried.pth`` on
-the rank's slice of ``batch.npz``, and the sharded ONEX eval (a fixed
+the rank's slice of ``batch.npz`` (plain, then rematerialised from the same
+state), and the sharded ONEX eval (a fixed
 one-box forward on ``eval.json``'s ``fake`` dataset, then the model of
 ``eval_weights.pth`` on its ``textured`` one). ``world1`` runs the train
 step on the whole batch with no group and then in a gloo group of one.
@@ -62,9 +63,10 @@ def train_state_of(state):
             "step": state.step}
 
 
-def run_step(workdir, rank, world):
-    """One train step from the carried state on the rank's slice of the
-    global batch; returns the new state and the metrics."""
+def run_step(workdir, rank, world, remat=False):
+    """One train step (rematerialised if ``remat``) from the carried state
+    on the rank's slice of the global batch; returns the new state and the
+    metrics."""
     from streamyolo_torch.exp import get_exp
     from streamyolo_torch.parallel import shard_batch
     from streamyolo_torch.train import (
@@ -80,7 +82,7 @@ def run_step(workdir, rank, world):
     load_carried_state(state, torch.load(os.path.join(workdir, "carried.pth")))
     with np.load(os.path.join(workdir, "batch.npz")) as f:
         batch = {k: torch.from_numpy(f[k]) for k in f.files}
-    step = make_train_step(NCLS, build_lr_schedule("yoloxwarmcos", **SCHED))
+    step = make_train_step(NCLS, build_lr_schedule("yoloxwarmcos", **SCHED), remat=remat)
     metrics = step(state, shard_batch(batch, rank, world))
     return train_state_of(state), {k: float(v) for k, v in metrics.items()}
 
@@ -171,10 +173,11 @@ def main(argv):
             torch.save({str(dt).removeprefix("torch."): run_bn(workdir, rank, world, dt)
                         for dt in (torch.float32, torch.float64)},
                        os.path.join(workdir, f"rank{rank}_bn.pth"))
-            state, metrics = run_step(workdir, rank, world)
-            torch.save(state, os.path.join(workdir, f"rank{rank}_step.pth"))
-            with open(os.path.join(workdir, f"rank{rank}_step.json"), "w") as f:
-                json.dump(metrics, f)
+            for tag, remat in (("step", False), ("step_remat", True)):
+                state, metrics = run_step(workdir, rank, world, remat)
+                torch.save(state, os.path.join(workdir, f"rank{rank}_{tag}.pth"))
+                with open(os.path.join(workdir, f"rank{rank}_{tag}.json"), "w") as f:
+                    json.dump(metrics, f)
             with open(os.path.join(workdir, f"rank{rank}_eval.json"), "w") as f:
                 json.dump(run_eval(workdir, rank), f)
         finally:

@@ -7,7 +7,11 @@
 * the full-width steady ``on_pipe`` step counted on meta tensors against
   ``int8_conv_times.STEP_SHAPES``;
 * every tool's ``main`` at a tiny width with ``--device cpu``: one JSON line,
-  its keys, every time, rate and share null, the counts filled;
+  its keys, every time, rate and share null, the counts filled; the
+  ``--remat`` train cells named with the ``_remat`` suffix and counting the
+  recomputed forward;
+* ``remat_steps.py``'s plain and remat steps equal bit for bit on the
+  CPU;
 * the chain ``bench.py`` times against the detector fed call by call;
 * without a card and without ``--device cpu`` each tool raises before it
   runs anything;
@@ -28,7 +32,7 @@ from streamyolo_tpu.models.dfp_pafpn import DFPPAFPN as JaxDFPPAFPN
 from streamyolo_tpu.models.heads import TALHead as JaxTALHead
 from streamyolo_tpu.models.yolox import StreamYOLO as JaxStreamYOLO
 from streamyolo_torch.models import DFPPAFPN, StreamYOLO, TALHead
-from streamyolo_torch.tools import bench, bench_hostpath, bench_suite, train_sweep
+from streamyolo_torch.tools import bench, bench_hostpath, bench_suite, remat_steps, train_sweep
 from streamyolo_torch.tools.int8_conv_times import STEP_SHAPES
 from streamyolo_torch.tools.measure import count_work, meta_like, on_meta, roofline
 from .torch_port_helpers import load_port, pin_threads
@@ -177,6 +181,13 @@ TOOL_RUNS = {
                                               "--steps", "1"] + TINY,
                                 tuple(f"train_parts_d0.33_w0.25_{p}_b2"
                                       for p in bench_suite.TRAIN_PARTS)),
+    "bench_suite train_s --remat": (bench_suite, ["train_s", "--remat", "--batch", "2",
+                                                  "--samples", "1", "--steps", "1"] + TINY,
+                                    ("device", "train_d0.33_w0.25_b2_remat")),
+    "bench_suite train_parts --remat": (bench_suite, ["train_parts", "--remat", "--batch", "2",
+                                                      "--samples", "1", "--steps", "1"] + TINY,
+                                        tuple(f"train_parts_d0.33_w0.25_{p}_b2_remat"
+                                              for p in bench_suite.TRAIN_PARTS)),
     "train_sweep": (train_sweep, ["2", "--samples", "1", "--chain", "1"] + TINY,
                     ("model", "input", "device", "points")),
     "bench_hostpath": (bench_hostpath, TINY + ["--samples", "2", "--step-samples", "1",
@@ -208,9 +219,41 @@ def test_tool_main_on_cpu_prints_counts_and_no_times(run, capsys):
     if run == "bench_suite stream_int8":
         cell = line["stream_d0.33_w0.25_int8_b1"]
         assert cell["tops_int8"] > 0 and cell["format"] == "bf16+int8"
+    if run.startswith("bench_suite train"):
+        # the backward is 2x the forward's convolutions, 3x with the re-run
+        # forward of --remat; the whole step 3x, or 4x
+        remat = run.endswith("--remat")
+        cells = [k for k in line if k != "device"]
+        assert all(k.endswith("_remat") == remat for k in cells), cells
+        fwd = train_sweep.forward_work(
+            bench.seeded_exp(train_sweep.CONFIG, 0.33, 0.25).get_model("cpu"),
+            torch.empty((2, 64, 96, 6), dtype=torch.uint8))["flops"] / 1e12
+        suffix = "_remat" if remat else ""
+        if "train_parts" in run:
+            parts = {p: line[f"train_parts_d0.33_w0.25_{p}_b2{suffix}"]["tflops"]
+                     for p in ("forward", "backward")}
+            assert parts["forward"] == pytest.approx(fwd)
+            assert parts["backward"] == pytest.approx((3 if remat else 2) * fwd)
+        else:
+            assert line[f"train_d0.33_w0.25_b2{suffix}"]["tflops"] == pytest.approx(4 * fwd)
+            assert line[f"train_d0.33_w0.25_b2{suffix}"]["remat"] is True
     if run == "bench_hostpath --train":
         assert line["train"]["jpeg_mbytes"] > 0
         assert {"loader_w0", "loader_w0_cache", "overlap", "sizing"} <= set(line["train"])
+
+
+def test_remat_steps_on_cpu(capsys):
+    """``remat_steps`` at a tiny width: the second plain step and the
+    remat step equal the first plain step bit for bit on the CPU; no memory
+    figure."""
+    assert remat_steps.main(["--batch", "2"] + TINY) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"]["platform"] == "cpu" and line["tensors"] > 1000
+    assert line["plain"]["lr"] > 0 and line["plain"]["peak_memory_gb"] is None
+    assert set(line["steps"]) == {"plain_again", "remat"}
+    for kind, r in line["steps"].items():
+        assert r["differ"] == r["above_plain_gap"] == 0 and not r["stats_differ"], kind
+        assert r["total_loss"] == line["plain"]["total_loss"], kind
 
 
 def test_chain_rows_equal_detector_calls():
@@ -244,7 +287,9 @@ def test_chain_rows_equal_detector_calls():
     (train_sweep, ["2"]),
     (bench_hostpath, []),
     (bench_hostpath, ["--train"]),
-], ids=["bench", "bench_suite", "train_sweep", "bench_hostpath", "bench_hostpath_train"])
+    (remat_steps, []),
+], ids=["bench", "bench_suite", "train_sweep", "bench_hostpath", "bench_hostpath_train",
+        "remat_steps"])
 def test_tools_refuse_the_cpu_by_default(tool, argv, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is available")

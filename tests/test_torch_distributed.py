@@ -15,6 +15,9 @@ weights, seeded BatchNorm statistics, momentum and EMA, step 2, where the schedu
     loss rel 1e-5, every tensor normwise 1e-3 (the bound of
     tests/test_distributed.py: only the reduction order differs); the ranks
     bitwise equal;
+  * the two-rank rematerialised step (its re-run all-reduces BatchNorm's
+    statistics again) against the two-rank plain step: bitwise equal, and
+    the ranks bitwise equal;
   * against the JAX step on a 2-device mesh: the bounds of
     tests/test_torch_train_step.py::test_three_steps_from_a_carried_state_match_jax;
   * the sharded eval's AP against one process: equal, the rows as
@@ -216,6 +219,8 @@ def dp(tmp_path_factory, fake_argoverse):
         out[f"bn{r}"] = torch.load(work / f"rank{r}_bn.pth")
         out[f"state{r}"] = torch.load(work / f"rank{r}_step.pth")
         out[f"metrics{r}"] = json.loads((work / f"rank{r}_step.json").read_text())
+        out[f"remat_state{r}"] = torch.load(work / f"rank{r}_step_remat.pth")
+        out[f"remat_metrics{r}"] = json.loads((work / f"rank{r}_step_remat.json").read_text())
         out[f"eval{r}"] = json.loads((work / f"rank{r}_eval.json").read_text())
     out["world1"] = torch.load(work / "world1.pth")
     return out
@@ -359,6 +364,23 @@ def test_two_process_train_step_ranks_agree_bitwise(dp):
     for (k, a), (_, b) in zip(state_tensors(s0), state_tensors(s1)):
         assert torch.equal(a, b), k
     assert dp["metrics0"] == dp["metrics1"]
+
+
+def test_two_process_remat_step_equals_plain_step(dp):
+    """Each rank's rematerialised step from the carried state: the two
+    ranks bitwise equal, and each bitwise equal to its plain step (the
+    running statistics moved once, by the global batch; the count one per
+    call)."""
+    r0, r1 = dp["remat_state0"], dp["remat_state1"]
+    assert r0["step"] == r1["step"] == dp["state0"]["step"] == 3
+    assert dp["remat_metrics0"] == dp["remat_metrics1"] == dp["metrics0"]
+    for r in (0, 1):
+        got, want = dp[f"remat_state{r}"], dp[f"state{r}"]
+        assert got["model"].keys() == want["model"].keys()
+        for k, v in want["model"].items():  # num_batches_tracked too
+            assert torch.equal(got["model"][k], v), (r, k)
+        for (k, a), (_, b) in zip(state_tensors(got), state_tensors(want)):
+            assert torch.equal(a, b), (r, k)
 
 
 def test_two_process_train_step_matches_single_process(dp):

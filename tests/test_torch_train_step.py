@@ -1,7 +1,8 @@
 """The port's train step against the JAX package, on the CPU: BatchNorm
 training statistics, the SGD decay groups, the LR schedules, the gradients
 of the whole model, three SGD + EMA steps from one carried mid-training
-state, and the multiscale ``preprocess``.
+state (plain and rematerialised), the rematerialised step against the
+plain one, and the multiscale ``preprocess``.
 
 StreamYOLO-s cut to depth 0.33, width 0.25 (8 classes, TAL head), inputs
 64x96, float32 on both sides, weights from the JAX init converted into the
@@ -12,7 +13,9 @@ port, inputs from a seed with NumPy. Tolerances:
   * parameter gradients, per tensor: max |d| <= 1e-5 * max |g| + 1e-7;
   * three steps: losses rtol 1e-4; parameters, momentum, EMA and BatchNorm
     statistics atol 1e-5;
-  * ``preprocess``: labels atol 1e-4, images atol 1e-3 grey levels.
+  * ``preprocess``: labels atol 1e-4, images atol 1e-3 grey levels;
+  * the rematerialised step against the plain one: bit for bit (float32
+    and bf16 autocast).
 
 Three bounds are loosened from the stated ones, each with its measured gap
 and cause in the test's docstring: the parameter gradients, the three-step
@@ -252,11 +255,15 @@ def carried(jstate):
         "ema_batch_stats": jstate.ema_batch_stats, "step": jstate.step})
 
 
-def test_three_steps_from_a_carried_state_match_jax(models):
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_three_steps_from_a_carried_state_match_jax(models, remat):
     """One JAX step makes a mid-training state (momentum, EMA and BN
     statistics off their init); it is carried into the port and both run
     three more steps under the shipped ``yoloxwarmcos`` at batch 2 (LR
-    0.001 / 64 * 2: lr/4, lr, 0.05 lr).
+    0.001 / 64 * 2: lr/4, lr, 0.05 lr). ``remat``: both steps
+    rematerialise their forward (``jax.checkpoint`` in JAX,
+    ``make_train_step(remat=True)`` in the port, its re-run in the calling
+    thread), at the same bounds.
 
     Bounds: total loss rtol 1e-4, each term rtol 2e-4 (the L1 term measured
     1.1e-4, ``tests/torch_train_gaps.py``); parameters atol 1e-5; BN statistics and
@@ -270,14 +277,14 @@ def test_three_steps_from_a_carried_state_match_jax(models):
               no_aug_epochs=3)
     jsched = j_build_lr_schedule("yoloxwarmcos", **kw)
     jstate, tx = j_create_train_state(variables, jsched)
-    jstep = jax.jit(j_make_train_step(jmodel, tx, NCLS, jsched))
+    jstep = jax.jit(j_make_train_step(jmodel, tx, NCLS, jsched, remat=remat))
     jstate, _ = jstep(jstate, j_batch(make_batch(10)))
 
     model = port_model(variables)
     state = create_train_state(model)
     load_carried_state(state, carried(jax.tree_util.tree_map(np.asarray, jstate)))
     assert state.step == 1
-    tstep = make_train_step(NCLS, build_lr_schedule("yoloxwarmcos", **kw))
+    tstep = make_train_step(NCLS, build_lr_schedule("yoloxwarmcos", **kw), remat=remat)
     lrs = []
     for i in range(3):
         batch = make_batch(11 + i)
@@ -311,6 +318,102 @@ def test_three_steps_from_a_carried_state_match_jax(models):
     assert len(state.optimizer.state) == len(want["momentum"]) == len(params)
     assert not torch.equal(state.ema.state["head.reg_preds.0.weight"],
                            model.head.reg_preds[0].weight)
+
+
+def step_record(state) -> dict:
+    """Every tensor a step leaves behind: the state dict (weights, running
+    statistics, ``num_batches_tracked``), the gradients, momentum and EMA."""
+    model = state.model
+    out = {f"model.{k}": v.clone() for k, v in model.state_dict().items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    out.update({f"grad.{n}": p.grad.clone() for n, p in model.named_parameters()})
+    out.update({f"momentum.{names[id(p)]}": s["momentum_buffer"].clone()
+                for p, s in state.optimizer.state.items()})
+    out.update({f"ema.{k}": v.clone() for k, v in state.ema.state.items()})
+    return out
+
+
+def test_batchnorm_recomputing_moves_nothing(rng):
+    """A training ``BatchNorm2d`` call inside ``recomputing()`` gives the
+    output of the same call outside it, bit for bit, and leaves the running
+    statistics and ``num_batches_tracked`` as they were; after the block the
+    next call moves them again."""
+    bn = tb.BatchNorm2d(6, eps=tb.BN_EPS, momentum=tb.BN_MOMENTUM).train()
+    x = torch.from_numpy(rng.standard_normal((2, 6, 5, 7), dtype=np.float32) * 3 + 1)
+    y = bn(x)
+    after_one = {k: v.clone() for k, v in bn.state_dict().items()}
+    with tb.recomputing():
+        again = bn(x)
+    assert torch.equal(again, y)
+    assert all(torch.equal(after_one[k], v) for k, v in bn.state_dict().items())
+    assert int(bn.num_batches_tracked) == 1
+    bn(x)
+    assert int(bn.num_batches_tracked) == 2
+    assert not torch.equal(bn.running_mean, after_one["running_mean"])
+
+
+@pytest.mark.parametrize("fp16", [False, True], ids=["float32", "bf16_autocast"])
+def test_remat_steps_equal_plain_steps(models, fp16):
+    """Three steps of ``make_train_step(remat=True)`` against three plain
+    steps from the same state and batches (constant LR 0.01): the metrics,
+    every gradient, parameter, running statistic, ``num_batches_tracked``,
+    momentum buffer and EMA entry equal bit for bit. The remat step runs
+    every BatchNorm and convolution twice (the backward re-runs the
+    forward), and each BatchNorm counts, and moves its running statistics
+    by, only the first pass's calls: one per call of the plain step (the
+    backbone's twice a step, current and support frame)."""
+    _, variables = models
+    runs = {}
+    for remat in (False, True):
+        model = port_model(variables)
+        state = create_train_state(model)
+        step = make_train_step(NCLS, build_lr_schedule("constant", 0.01, 10, 10), fp16=fp16,
+                               remat=remat)
+        calls = {}
+        for name, m in model.named_modules():
+            if isinstance(m, (torch.nn.Conv2d, tb.BatchNorm2d)):
+                m.register_forward_hook(
+                    lambda m, i, o, name=name: calls.__setitem__(name, calls.get(name, 0) + 1))
+        metrics, records = [], []
+        for i in range(3):
+            metrics.append({k: float(v) for k, v in step(state, t_batch(make_batch(11 + i))).items()})
+            records.append(step_record(state))
+        runs[remat] = metrics, records, calls, state.step
+    (m0, r0, c0, s0), (m1, r1, c1, s1) = runs[False], runs[True]
+    assert s0 == s1 == 3
+    assert m0 == m1
+    for i, (a, b) in enumerate(zip(r0, r1)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), f"step {i} {k}"
+    assert c0.keys() == c1.keys() and len(c0) > 100
+    assert all(c1[k] == 2 * c0[k] for k in c0), {k: (c0[k], c1[k]) for k in c0}
+    counts = {k.removeprefix("model.").removesuffix(".num_batches_tracked"): int(v)
+              for k, v in r1[-1].items()
+              if k.startswith("model.") and k.endswith("num_batches_tracked")}
+    assert counts and all(n == c0[k] for k, n in counts.items())
+    assert set(counts.values()) == {3, 6}
+
+
+def test_remat_loss_fn_reaches_the_parameters(models):
+    """``loss_fn`` of a remat step runs the plain forward: its total loss
+    back-propagates into every parameter, with the gradients of the plain
+    step's ``loss_fn``, bit for bit, and moves the running statistics as
+    that one does."""
+    _, variables = models
+    grads, stats = {}, {}
+    for remat in (False, True):
+        model = port_model(variables).train()
+        step = make_train_step(NCLS, build_lr_schedule("constant", 0.01, 10, 10), remat=remat)
+        step.loss_fn(model, t_batch(make_batch(11)))["total_loss"].backward()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+        stats[remat] = {k: v for k, v in model.state_dict().items()
+                        if k.endswith(("running_mean", "num_batches_tracked"))}
+    assert all(g is not None for g in grads[True].values())
+    for k in grads[False]:
+        assert torch.equal(grads[False][k], grads[True][k]), k
+    for k in stats[False]:
+        assert torch.equal(stats[False][k], stats[True][k]), k
 
 
 def test_fp16_step_keeps_float32_master_weights(models):
